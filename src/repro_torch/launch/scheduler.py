@@ -1,0 +1,453 @@
+"""Continuous-batching request scheduler over ``LM.decode_step``.
+
+Counterpart of ``repro.launch.scheduler``.  A fixed-width decode batch of
+``slots`` rows steps every iteration, while a request queue feeds free
+slots through prefill side steps grouped by a power-of-two bucket of the
+prompt length.  A slot is freed the moment its request finishes (EOS or
+``max_new``) and the next queued request is admitted into it.
+
+Correctness rests on the same three model-layer properties as the
+reference: per-slot cache positions, ``active`` gating (an inactive
+slot's caches come out bit-identical), and row independence (no MoE), so
+the streamed tokens equal a per-request offline decode
+(:func:`decode_offline`).
+
+Prefill of a group of ``k`` same-bucket requests runs as a loop of gated
+``decode_step``s over a fresh zero batch-``k`` cache, then scatters each
+filled row into its slot of the batch cache.  The loop stops at the
+group's longest prompt: the reference scans the whole bucket to bound its
+jit compiles, and the extra steps are all-inactive no-ops.
+
+RNG: every sampling draw uses a ``torch.Generator`` seeded by a fixed
+integer mix of ``(seed, request id, input position)``, so a request's
+tokens do not depend on its co-tenants and the whole trace replays from
+``seed``.  The draws are not JAX's: sampled tokens are held to this
+package's own offline decode, greedy tokens to the reference's.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+__all__ = ["Request", "ServeReport", "ContinuousBatcher", "decode_offline",
+           "run_static", "prefill_bucket"]
+
+_MASK64 = (1 << 64) - 1
+
+
+def prefill_bucket(length: int, minimum: int = 16) -> int:
+    """Smallest power-of-two ≥ ``length`` (floor ``minimum``)."""
+    b = max(minimum, 1)
+    while b < length:
+        b *= 2
+    return b
+
+
+@dataclass
+class Request:
+    """One generation request plus its lifecycle bookkeeping."""
+    rid: int
+    prompt_len: int
+    max_new: int
+    #: prompt token ids, shape (prompt_len,)
+    prompt: np.ndarray | None = None
+    temperature: float = 0.0
+    #: generated token ids, in order.
+    out: list[int] = field(default_factory=list)
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+    finish: str = ""        # "eos" | "length" | "budget"
+
+    @property
+    def latency_s(self) -> float:
+        return self.t_done - self.t_submit
+
+    @property
+    def ttft_s(self) -> float:
+        """Submit → first generated token."""
+        return self.t_first - self.t_submit
+
+
+@dataclass
+class ServeReport:
+    requests: list[Request] = field(default_factory=list)
+    generated: int = 0
+    steps: int = 0
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+    wall_s: float = 0.0
+    occupancy: float = 0.0      # mean active-slot fraction per decode step
+    slots: int = 0
+
+    @property
+    def tok_per_s(self) -> float:
+        return self.generated / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def decode_tok_per_s(self) -> float:
+        return self.generated / self.decode_s if self.decode_s else 0.0
+
+    def latency_percentiles(self) -> dict[str, float]:
+        lats = sorted(r.latency_s for r in self.requests)
+        if not lats:
+            return {"p50": 0.0, "p99": 0.0}
+
+        def pct(p: float) -> float:
+            i = min(len(lats) - 1, int(round(p / 100 * (len(lats) - 1))))
+            return lats[i]
+        return {"p50": pct(50), "p99": pct(99)}
+
+    def to_dict(self) -> dict:
+        lat = self.latency_percentiles()
+        return {"requests": len(self.requests),
+                "generated": self.generated, "steps": self.steps,
+                "tok_per_s": self.tok_per_s,
+                "decode_tok_per_s": self.decode_tok_per_s,
+                "prefill_s": self.prefill_s, "decode_s": self.decode_s,
+                "wall_s": self.wall_s, "occupancy": self.occupancy,
+                "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
+                "slots": self.slots}
+
+
+def _draw_seed(seed: int, rid: int, pos: int) -> int:
+    """Fixed 64-bit mix of (seed, rid, pos) (splitmix64 finaliser over a
+    weighted sum): one independent stream per draw."""
+    z = (seed * 0x9E3779B97F4A7C15 + rid * 0xBF58476D1CE4E5B9
+         + pos * 0x94D049BB133111EB + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
+def _sample(logits_row: np.ndarray, seed: int, rid: int, pos: int,
+            temperature: float) -> int:
+    """Sampling rule shared by the batcher and the offline reference:
+    greedy at temperature 0, else categorical keyed by the *input*
+    position that produced these logits (drawn on the host)."""
+    if temperature > 0:
+        gen = torch.Generator().manual_seed(_draw_seed(seed, rid, pos))
+        probs = torch.softmax(
+            torch.as_tensor(logits_row, dtype=torch.float64) / temperature,
+            dim=-1)
+        return int(torch.multinomial(probs, 1, generator=gen))
+    return int(np.argmax(logits_row, axis=-1))
+
+
+def _host_rows(logits: torch.Tensor) -> np.ndarray:
+    """(B, 1, vocab) device logits → (B, vocab) f32 numpy (exact for bf16)."""
+    return logits[:, -1].float().cpu().numpy()
+
+
+def _check_batchable(cfg) -> None:
+    if any(ffn == "moe" for _, ffn in cfg.layer_kinds()):
+        raise ValueError(
+            "continuous batching requires row-independent compute; "
+            f"{cfg.name} has MoE layers whose expert capacity couples "
+            "slots through whole-batch token counts (serve MoE "
+            "configs with the static path)")
+
+
+class ContinuousBatcher:
+    """Admit/evict scheduler around ``decode_step``.
+
+    Args:
+        lm: the model (``repro_torch.models.lm.LM``).
+        params: its parameters.
+        slots: decode batch width.
+        s_max: cache capacity per slot; a request needs
+            ``prompt_len + max_new <= s_max``.
+        seed: root of every RNG stream (see module docstring).
+        eos_id: token id that finishes a request early (``None``
+            disables EOS detection — length-only termination).
+        prefill_min: minimum prefill bucket (power-of-two grouping).
+    """
+
+    def __init__(self, lm, params, *, slots: int, s_max: int,
+                 seed: int = 0, eos_id: int | None = None,
+                 prefill_min: int = 16):
+        _check_batchable(lm.cfg)
+        self.lm, self.params = lm, params
+        self.cfg = lm.cfg
+        self.device = lm.device
+        self.slots, self.s_max, self.seed = slots, s_max, seed
+        self.eos_id = eos_id
+        self.prefill_min = prefill_min
+
+        self.caches = lm.init_caches(slots, s_max, vector_pos=True)
+        self.queue: deque[Request] = deque()
+        self._next_rid = 0
+        self.pos = np.zeros(slots, np.int32)
+        self.active = np.zeros(slots, bool)
+        self.tokens = np.zeros((slots, 1), np.int64)
+        self.slot_req: list[Request | None] = [None] * slots
+
+    # -- submission ------------------------------------------------------
+    def submit(self, prompt: np.ndarray, max_new: int, *,
+               temperature: float = 0.0) -> Request:
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        prompt_len = len(prompt)
+        if prompt_len < 1:
+            raise ValueError("empty prompt")
+        if prompt_len + max_new > self.s_max:
+            raise ValueError(f"request needs {prompt_len + max_new} "
+                             f"positions, cache holds {self.s_max}")
+        req = Request(rid=self._next_rid, prompt_len=prompt_len,
+                      max_new=max_new, prompt=prompt,
+                      temperature=temperature,
+                      t_submit=time.perf_counter())
+        self._next_rid += 1
+        self.queue.append(req)
+        return req
+
+    # -- prefill side step -----------------------------------------------
+    def _admit_group(self, pairs: list[tuple[int, Request]]) -> None:
+        """Prefill one same-bucket group of requests as gated decode
+        steps over a fresh batch-``k`` cache, scatter each filled row into
+        its slot, then sample each request's first token."""
+        lm, dev = self.lm, self.device
+        k = len(pairs)
+        now = time.perf_counter()
+        lengths = np.array([r.prompt_len for _, r in pairs], np.int64)
+        toks = np.zeros((int(lengths.max()), k, 1), np.int64)
+        for i, (_slot, req) in enumerate(pairs):
+            req.t_admit = now
+            toks[:req.prompt_len, i, 0] = req.prompt
+        xs = torch.as_tensor(toks, device=dev)
+        lengths_t = torch.as_tensor(lengths, device=dev)
+        small = lm.init_caches(k, self.s_max, vector_pos=True)
+        last = None
+        for t in range(toks.shape[0]):
+            batch = {"tokens": xs[t],
+                     "pos": torch.full((k,), t, dtype=torch.int32,
+                                       device=dev),
+                     "active": t < lengths_t}
+            logits, small = lm.decode_step(self.params, batch, small)
+            row = logits[:, -1]
+            last = row if last is None else torch.where(
+                (lengths_t - 1 == t)[:, None], row, last)
+        # install: the batch axis of every leaf is 0, or 1 inside a
+        # stacked group whose leading axis is layers.
+        slot_vec = torch.as_tensor([s for s, _ in pairs], device=dev)
+        for gi, (_pattern, repeats) in enumerate(lm._groups()):
+            g = f"group{gi}"
+            for b, big in self.caches[g].items():
+                for dst, src in zip(big, small[g][b]):
+                    if repeats > 1:
+                        dst[:, slot_vec] = src
+                    else:
+                        dst[slot_vec] = src
+        last_np = last.float().cpu().numpy()
+        t_first = time.perf_counter()
+        for i, (slot, req) in enumerate(pairs):
+            tok = _sample(last_np[i], self.seed, req.rid, req.prompt_len - 1,
+                          req.temperature)
+            req.out.append(tok)
+            req.t_first = t_first
+            self.pos[slot] = req.prompt_len
+            self.active[slot] = True
+            self.tokens[slot, 0] = tok
+            self.slot_req[slot] = req
+            self._maybe_finish(slot, tok)
+
+    def _evict(self, slot: int, finish: str) -> None:
+        req = self.slot_req[slot]
+        req.finish = finish
+        req.t_done = time.perf_counter()
+        self.active[slot] = False
+        self.slot_req[slot] = None
+
+    def _maybe_finish(self, slot: int, tok: int) -> bool:
+        req = self.slot_req[slot]
+        if self.eos_id is not None and tok == self.eos_id:
+            self._evict(slot, "eos")
+            return True
+        if len(req.out) >= req.max_new:
+            self._evict(slot, "length")
+            return True
+        return False
+
+    # -- main loop -------------------------------------------------------
+    def _decode_batch(self) -> dict:
+        dev = self.device
+        return {"pos": torch.as_tensor(self.pos, device=dev),
+                "active": torch.as_tensor(self.active, device=dev),
+                "tokens": torch.as_tensor(self.tokens, device=dev)}
+
+    def run(self, max_steps: int | None = None) -> ServeReport:
+        """Drain the queue: admit → step → sample/evict until every
+        submitted request has finished.  Returns the serving report;
+        per-request tokens live on the :class:`Request` objects."""
+        rep = ServeReport(slots=self.slots)
+        occ_sum = 0.0
+        t_start = time.perf_counter()
+        budget = max_steps if max_steps is not None else (
+            sum(r.max_new for r in self.queue) + len(self.queue) + 64)
+        while self.queue or self.active.any():
+            # admit: fill the free slots from the queue, grouped by
+            # prefill bucket so each group is one batched side step.
+            if self.queue:
+                t0 = time.perf_counter()
+                groups: dict[int, list[tuple[int, Request]]] = {}
+                for slot in range(self.slots):
+                    if not self.queue:
+                        break
+                    if not self.active[slot]:
+                        req = self.queue.popleft()
+                        b = prefill_bucket(req.prompt_len,
+                                           self.prefill_min)
+                        groups.setdefault(b, []).append((slot, req))
+                        rep.requests.append(req)
+                for _b, pairs in sorted(groups.items()):
+                    self._admit_group(pairs)
+                if groups:
+                    rep.prefill_s += time.perf_counter() - t0
+            if not self.active.any():
+                continue    # every admitted request finished at token 0
+            # one decode step over the whole batch
+            t0 = time.perf_counter()
+            logits, self.caches = self.lm.decode_step(
+                self.params, self._decode_batch(), self.caches)
+            logits_np = _host_rows(logits)
+            rep.decode_s += time.perf_counter() - t0
+            rep.steps += 1
+            occ_sum += float(self.active.sum()) / self.slots
+            for slot in range(self.slots):
+                if not self.active[slot]:
+                    continue
+                req = self.slot_req[slot]
+                tok = _sample(logits_np[slot], self.seed, req.rid,
+                              int(self.pos[slot]), req.temperature)
+                req.out.append(tok)
+                self.pos[slot] += 1
+                self.tokens[slot, 0] = tok
+                self._maybe_finish(slot, tok)
+            if rep.steps >= budget:
+                for slot in range(self.slots):
+                    if self.active[slot]:
+                        self._evict(slot, "budget")
+                break
+        rep.wall_s = time.perf_counter() - t_start
+        rep.generated = sum(len(r.out) for r in rep.requests)
+        rep.occupancy = occ_sum / rep.steps if rep.steps else 0.0
+        return rep
+
+
+# -- references ----------------------------------------------------------
+
+def decode_offline(lm, params, req: Request, *, seed: int, s_max: int,
+                   eos_id: int | None = None,
+                   on_logits: Callable[[np.ndarray], None] | None = None
+                   ) -> list[int]:
+    """Single-request lock-step decode — the scheduler's oracle.
+
+    A different code path from the batcher: scalar cache positions
+    (contiguous writes instead of per-slot scatter), no padding, no
+    gating, batch 1 throughout.  ``on_logits`` receives the f32 logits row
+    each generated token was drawn from."""
+    _check_batchable(lm.cfg)
+    dev = lm.device
+    caches = lm.init_caches(1, s_max)
+
+    def step(t: int, tok: int) -> np.ndarray:
+        nonlocal caches
+        batch = {"pos": torch.tensor(t, dtype=torch.int32, device=dev),
+                 "tokens": torch.tensor([[tok]], dtype=torch.int64,
+                                        device=dev)}
+        logits, caches = lm.decode_step(params, batch, caches)
+        return _host_rows(logits)[0]
+
+    def draw(row: np.ndarray, t: int) -> int:
+        if on_logits is not None:
+            on_logits(row)
+        return _sample(row, seed, req.rid, t, req.temperature)
+
+    row = None
+    for t in range(req.prompt_len):
+        row = step(t, int(req.prompt[t]))
+    out: list[int] = []
+    tok = draw(row, req.prompt_len - 1)
+    out.append(tok)
+    t = req.prompt_len
+    while len(out) < req.max_new and not (eos_id is not None
+                                          and tok == eos_id):
+        tok = draw(step(t, tok), t)
+        out.append(tok)
+        t += 1
+    return out
+
+
+def run_static(lm, params, requests: list[Request], *, seed: int,
+               s_max: int, slots: int | None = None,
+               eos_id: int | None = None) -> ServeReport:
+    """The lock-step baseline at the same batch width: requests go in
+    waves of ``slots`` rows in submission order, each wave's prompts
+    padded to its longest, and every row decodes until the wave's largest
+    ``max_new``.  The report counts only useful tokens (each request's
+    own ``max_new``)."""
+    slots = slots or len(requests)
+    rep = ServeReport(slots=slots)
+    if not requests:
+        return rep
+    dev = lm.device
+    t_start = time.perf_counter()
+    for w0 in range(0, len(requests), slots):
+        wave = requests[w0:w0 + slots]
+        B = len(wave)
+        l_max = max(r.prompt_len for r in wave)
+        g_max = max(r.max_new for r in wave)
+        prompts = np.zeros((B, l_max), np.int64)
+        for i, r in enumerate(wave):
+            prompts[i, :r.prompt_len] = r.prompt
+
+        caches = lm.init_caches(B, s_max)
+
+        def step(t: int, toks: np.ndarray):
+            nonlocal caches
+            batch = {"pos": torch.tensor(t, dtype=torch.int32, device=dev),
+                     "tokens": torch.as_tensor(toks, device=dev)}
+            logits, caches = lm.decode_step(params, batch, caches)
+            return _host_rows(logits)
+
+        t_wave = time.perf_counter()
+        logits_np = None
+        for t in range(l_max):
+            logits_np = step(t, prompts[:, t:t + 1])
+        rep.prefill_s += time.perf_counter() - t_wave
+        t0 = time.perf_counter()
+        toks = np.zeros((B, 1), np.int64)
+        done = [False] * B
+        for i, r in enumerate(wave):
+            tok = _sample(logits_np[i], seed, r.rid, l_max - 1,
+                          r.temperature)
+            r.out = [tok]
+            toks[i, 0] = tok
+            done[i] = eos_id is not None and tok == eos_id
+        for g in range(1, g_max):
+            logits_np = step(l_max + g - 1, toks)
+            rep.steps += 1
+            for i, r in enumerate(wave):
+                tok = _sample(logits_np[i], seed, r.rid, l_max + g - 1,
+                              r.temperature)
+                if not done[i] and len(r.out) < r.max_new:
+                    r.out.append(tok)
+                    done[i] = eos_id is not None and tok == eos_id
+                toks[i, 0] = tok
+        rep.decode_s += time.perf_counter() - t0
+        for r in wave:
+            r.t_first = r.t_first or time.perf_counter()
+            r.t_done = time.perf_counter()   # wave finishes together
+            r.finish = "length"
+            rep.requests.append(r)
+        rep.occupancy += sum(r.max_new for r in wave)
+    rep.wall_s = time.perf_counter() - t_start
+    rep.generated = sum(len(r.out) for r in rep.requests)
+    rep.occupancy = (rep.occupancy
+                     / max(1, (rep.steps + 1) * slots))
+    return rep

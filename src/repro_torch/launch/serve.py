@@ -1,0 +1,139 @@
+"""Serving driver: continuous batching over ``decode_step`` on one card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --slots 8 --requests 16 --prompt-len-range 16 256 \\
+        --gen-range 32 128
+
+Counterpart of ``repro.launch.serve`` without the sharding plan: on one
+card ``constrain`` is a no-op, and fetching and applying a plan wait for
+ROADMAP A8/A14, so the driver prints ``plan: skipped``.  The model runs
+with ``use_kernels=True``: the RMSNorm kernel at every norm site of
+every decode step.  ``--device cpu`` runs the same path on the CPU with
+the kernels' plain versions.
+
+The request trace comes from its own numpy stream; the parameters from a
+``torch.Generator`` seeded with ``--seed``; sampling draws are keyed per
+(request, position) inside the scheduler.  MoE configs are served on the
+static path (the batcher refuses them), once MoE is ported.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from ..configs import get_config, list_archs
+from ..models.lm import LM
+from .scheduler import ContinuousBatcher, Request, prefill_bucket, run_static
+
+
+def make_trace(cfg, n_requests: int, *, seed: int,
+               prompt_len_range=(4, 48), gen_range=(16, 64),
+               temperature: float = 0.0) -> list[dict]:
+    """Deterministic mixed-length request trace (the reference's: the same
+    numpy stream draws the same shapes and prompt tokens)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = prompt_len_range
+    glo, ghi = gen_range
+    out = []
+    for _ in range(n_requests):
+        pl = int(rng.integers(lo, hi + 1))
+        gen = int(rng.integers(glo, ghi + 1))
+        prompt = rng.integers(0, cfg.vocab, pl).astype(np.int32)
+        out.append({"prompt": prompt, "prompt_len": pl, "max_new": gen,
+                    "temperature": temperature})
+    return out
+
+
+def _static_requests(trace: list[dict]) -> list[Request]:
+    now = time.perf_counter()
+    return [Request(rid=i, prompt_len=t["prompt_len"],
+                    max_new=t["max_new"], prompt=t["prompt"],
+                    temperature=t["temperature"], t_submit=now)
+            for i, t in enumerate(trace)]
+
+
+def _summary(rep) -> str:
+    d = rep.to_dict()
+    return (f"{rep.generated} tokens / {len(rep.requests)} requests in "
+            f"{rep.wall_s:.2f}s ({d['tok_per_s']:.0f} tok/s, occupancy "
+            f"{rep.occupancy:.2f}, p50 {d['latency_p50_s'] * 1e3:.0f} ms, "
+            f"p99 {d['latency_p99_s'] * 1e3:.0f} ms)")
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m", choices=list_archs())
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode batch width (concurrent requests)")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--prompt-len-range", type=int, nargs=2,
+                    default=(4, 48), metavar=("LO", "HI"))
+    ap.add_argument("--gen-range", type=int, nargs=2, default=(16, 64),
+                    metavar=("LO", "HI"))
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--static", action="store_true",
+                    help="also run the lock-step wave baseline")
+    ap.add_argument("--warmup", type=int, default=0,
+                    help="un-timed passes over the trace first, so the "
+                    "reported numbers are steady-state")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cuda without a card raises")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    pl_lo, pl_hi = args.prompt_len_range
+    g_lo, g_hi = args.gen_range
+    s_max = prefill_bucket(pl_hi, 16) + g_hi
+
+    print("[serve] plan: skipped (one card: constrain is a no-op)")
+    lm = LM(cfg, use_kernels=True, device=args.device)
+    params, _ = lm.init(args.seed)
+    trace = make_trace(cfg, args.requests, seed=args.seed,
+                       prompt_len_range=(pl_lo, pl_hi),
+                       gen_range=(g_lo, g_hi),
+                       temperature=args.temperature)
+
+    is_moe = any(ffn == "moe" for _, ffn in cfg.layer_kinds())
+    metrics: dict = {"arch": args.arch, "device": str(lm.device),
+                     "plan": {"source": "skipped"}}
+    if not is_moe:
+        def run_once():
+            b = ContinuousBatcher(lm, params, slots=args.slots,
+                                  s_max=s_max, seed=args.seed,
+                                  eos_id=args.eos_id)
+            for t in trace:
+                b.submit(t["prompt"], t["max_new"],
+                         temperature=t["temperature"])
+            return b.run()
+
+        for _ in range(args.warmup):
+            run_once()
+        rep = run_once()
+        metrics["continuous"] = rep.to_dict()
+        print(f"[serve] continuous: {_summary(rep)}")
+
+    if args.static or is_moe:
+        for _ in range(args.warmup):
+            run_static(lm, params, _static_requests(trace),
+                       seed=args.seed, s_max=s_max, slots=args.slots,
+                       eos_id=args.eos_id)
+        srep = run_static(lm, params, _static_requests(trace),
+                          seed=args.seed, s_max=s_max, slots=args.slots,
+                          eos_id=args.eos_id)
+        metrics["static"] = srep.to_dict()
+        print(f"[serve] static:     {_summary(srep)}")
+        if "continuous" in metrics:
+            ratio = (metrics["continuous"]["tok_per_s"]
+                     / max(metrics["static"]["tok_per_s"], 1e-9))
+            metrics["continuous_vs_static"] = ratio
+            print(f"[serve] continuous/static throughput: {ratio:.2f}x")
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

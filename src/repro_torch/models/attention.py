@@ -1,0 +1,238 @@
+"""Attention family, the GQA half: causal and sliding-window masks, the
+KV cache with scalar and per-slot positions, and the flash-attention
+kernel on the full-sequence path.
+
+Counterpart of ``repro.models.attention``.  Cross-attention (``kv_x``)
+and MLA wait for later slices (ROADMAP A4 and A9).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..configs.base import ArchConfig
+from .layers import F32, ParamBuilder, apply_rope, rope_angles
+
+Constrain = Callable[..., torch.Tensor]
+_NEG = -1e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, S_max, KVH, Dh)
+    v: Optional[torch.Tensor]
+    #: tokens already cached: a scalar int32 for lock-step decode, or a
+    #: per-slot ``(B,)`` int32 vector for the continuous-batching server.
+    pos: torch.Tensor
+
+
+# --------------------------------------------------------------------------
+# GQA
+# --------------------------------------------------------------------------
+
+def init_gqa(pb: ParamBuilder, path: str, cfg: ArchConfig,
+             stack: int | None = None) -> None:
+    D, H, KV, Dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    pb.weight(f"{path}/w_q", (D, H, Dh), ("d_model", "heads", "d_head"),
+              stack=stack)
+    pb.weight(f"{path}/w_kv", (D, 2, KV, Dh),
+              ("d_model", "two", "kv_heads", "d_head"), stack=stack)
+    pb.weight(f"{path}/w_o", (H, Dh, D), ("heads", "d_head", "d_model"),
+              stack=stack)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor | None) -> torch.Tensor:
+    """q (B,Sq,H,Dh), k/v (B,Skv,KVH,Dh) with GQA head grouping.
+
+    Rounds where the reference rounds: the scores leave the q·k product
+    in q's dtype before the f32 softmax, and the probabilities are cast
+    back to q's dtype before the product with v."""
+    B, Sq, H, Dh = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, Sq, KVH, G, Dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(F32)
+    scores = scores / math.sqrt(Dh)
+    if mask is not None:
+        scores = torch.where(mask, scores, _NEG)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(q.dtype), v)
+    return ctx.reshape(B, Sq, H, v.shape[-1])
+
+
+#: switch to the memory-linear chunked path above this many score elements
+_FLASH_THRESHOLD = 1 << 21
+_Q_BLOCK = 256
+_KV_BLOCK = 1024
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_block: int = _Q_BLOCK, kv_block: int = _KV_BLOCK,
+                    scale: float | None = None) -> torch.Tensor:
+    """Online-softmax chunked attention in plain PyTorch (the
+    counterpart of ``flash_attention_jnp``): O(Sq·Dh) memory instead of
+    O(Sq·Skv), all arithmetic in f32.  GQA grouping handled natively."""
+    B, Sq, H, Dh = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    Skv = k.shape[1]
+    Dv = v.shape[-1]
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Skv)
+    nq, nk = Sq // q_block, Skv // kv_block
+    if Sq % q_block or Skv % kv_block:
+        return _sdpa(q, k, v, causal_mask(Sq, Skv, window, device=q.device)
+                     if causal else None)
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    dev = q.device
+
+    qb = q.reshape(B, nq, q_block, KVH, G, Dh).permute(1, 0, 3, 4, 2, 5)
+    kb = k.reshape(B, nk, kv_block, KVH, Dh).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(B, nk, kv_block, KVH, Dv).permute(1, 0, 3, 2, 4)
+    ys = []
+    for qi in range(nq):
+        qblk = qb[qi].to(F32)
+        qpos = qi * q_block + torch.arange(q_block, device=dev)
+        m = torch.full((B, KVH, G, q_block), -math.inf, dtype=F32,
+                       device=dev)
+        l = torch.zeros((B, KVH, G, q_block), dtype=F32, device=dev)
+        acc = torch.zeros((B, KVH, G, q_block, Dv), dtype=F32, device=dev)
+        for ki in range(nk):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qblk,
+                             kb[ki].to(F32)) * scale
+            kpos = ki * kv_block + torch.arange(kv_block, device=dev)
+            mask = torch.ones((q_block, kv_block), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask = kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(mask, s, _NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vb[ki].to(F32))
+            m = m_new
+        y = acc / torch.clamp(l, min=1e-30)[..., None]
+        ys.append(y.to(q.dtype))
+    # ys: (nq, B, KVH, G, q_block, Dv)
+    out = torch.stack(ys).permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H, Dv)
+    return out
+
+
+def causal_mask(Sq: int, Skv: int, window: int | None = None,
+                q_offset: int = 0, device=None) -> torch.Tensor:
+    """(1,1,1,Sq,Skv) boolean mask; ``window`` adds the SWA band."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Skv, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    return m[None, None, None]
+
+
+def decode_mask(Skv: int, pos: torch.Tensor, window: int | None = None
+                ) -> torch.Tensor:
+    """Single-token decode mask at position ``pos``: ``(1,1,1,1,Skv)``
+    for scalar ``pos``, ``(B,1,1,1,Skv)`` for per-slot ``(B,)`` ``pos``
+    (each slot attends only to its own prefix, so stale cache rows from
+    a previous slot occupant get exactly zero probability)."""
+    kpos = torch.arange(Skv, device=pos.device)
+    if pos.ndim:
+        m = kpos[None, :] <= pos[:, None]
+        if window is not None:
+            m = m & (kpos[None, :] > pos[:, None] - window)
+        return m[:, None, None, None, :]
+    m = kpos <= pos
+    if window is not None:
+        m = m & (kpos > pos - window)
+    return m[None, None, None, None, :]
+
+
+def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                 active: torch.Tensor | None) -> None:
+    """Write this step's k/v into the cache in place (saves a copy of
+    the whole cache per layer per step; JAX returns a new one instead).
+
+    Per-slot positions scatter each row's single token at its own
+    position; an inactive row writes back what was there, so its cache
+    stays bit-identical.  A scalar position writes the S new tokens at
+    ``pos`` for every row."""
+    if cache.pos.ndim:
+        rows = torch.arange(k.shape[0], device=k.device)
+        pos = cache.pos.long()
+        k_new, v_new = k[:, 0], v[:, 0]
+        if active is not None:
+            keep = active[:, None, None]
+            k_new = torch.where(keep, k_new, cache.k[rows, pos])
+            v_new = torch.where(keep, v_new, cache.v[rows, pos])
+        cache.k[rows, pos] = k_new
+        cache.v[rows, pos] = v_new
+        return
+    if active is not None:
+        raise ValueError("active gating needs per-slot (vector) cache "
+                         "positions: init_caches(vector_pos=True)")
+    idx = cache.pos.long() + torch.arange(k.shape[1], device=k.device)
+    cache.k.index_copy_(1, idx, k)
+    cache.v.index_copy_(1, idx, v)
+
+
+def gqa_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                  positions: torch.Tensor, constrain: Constrain,
+                  cache: KVCache | None = None,
+                  kv_x: torch.Tensor | None = None,
+                  causal: bool = True,
+                  use_kernels: bool = False,
+                  active: torch.Tensor | None = None,
+                  ) -> tuple[torch.Tensor, KVCache | None]:
+    """Self-attention.  ``cache`` implies single-step decode (``active``
+    gates its per-slot write); without a cache ``use_kernels`` runs the
+    flash-attention kernel."""
+    if kv_x is not None:
+        raise NotImplementedError("cross-attention (kv_x) is not ported "
+                                  "yet: ROADMAP A4")
+    B, S, D = x.shape
+    Dh = cfg.resolved_head_dim
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    rot_dim = int(Dh * cfg.rope_pct) & ~1
+
+    q = (x @ p["w_q"].reshape(D, H * Dh)).reshape(B, S, H, Dh)
+    kv = (x @ p["w_kv"].reshape(D, 2 * KVH * Dh)).reshape(B, S, 2, KVH, Dh)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    q = constrain(q, ("batch", "seq", "heads", "d_head"), "q")
+    k = constrain(k, ("batch", "kv_seq", "kv_heads", "d_head"), "k")
+    v = constrain(v, ("batch", "kv_seq", "kv_heads", "d_head"), "v")
+
+    if rot_dim > 0:
+        cos, sin = rope_angles(positions, rot_dim)
+        q = apply_rope(q, cos, sin, rot_dim)
+        k = apply_rope(k, cos, sin, rot_dim)
+
+    new_cache = None
+    if cache is not None:
+        _write_cache(cache, k, v, active)
+        new_cache = KVCache(cache.k, cache.v, cache.pos + S)
+        mask = decode_mask(cache.k.shape[1], cache.pos, cfg.attn_window)
+        ctx = _sdpa(q, cache.k, cache.v, mask)
+    else:
+        if use_kernels:
+            from ..kernels.flash_attention import ops as fa_ops
+            ctx = fa_ops.mha(q, k, v, causal=causal,
+                             window=cfg.attn_window)
+        elif S * S > _FLASH_THRESHOLD:
+            ctx = flash_attention(q, k, v, causal=causal,
+                                  window=cfg.attn_window)
+        else:
+            mask = (causal_mask(S, S, cfg.attn_window, device=x.device)
+                    if causal else None)
+            ctx = _sdpa(q, k, v, mask)
+
+    ctx = constrain(ctx, ("batch", "seq", "heads", "d_head"), "attn_ctx")
+    out = ctx.reshape(B, S, H * Dh) @ p["w_o"].reshape(H * Dh, D)
+    return out, new_cache

@@ -1,0 +1,182 @@
+"""Shared layers: norms, SwiGLU MLP, rotary embeddings, parameter builder.
+
+Counterpart of ``repro.models.layers``.  Parameters are plain nested
+dicts of tensors with the reference's paths and layouts; ``ParamBuilder``
+records each parameter's logical dims beside it, as the reference does
+for plan-driven sharding.
+
+Numerics follow the reference op for op: norms and the SiLU run in f32
+and cast back to the activation dtype; bf16 products accumulate in f32
+and round once.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+BF16 = torch.bfloat16
+F32 = torch.float32
+
+
+# --------------------------------------------------------------------------
+# Parameter builder (records logical dims for plan-driven sharding)
+# --------------------------------------------------------------------------
+
+@dataclass
+class ParamBuilder:
+    """Initialises parameters at the reference's stds (``1/sqrt(fan_in)``
+    unless a scale is given; norms at ones/zeros).  Only shapes and stds
+    match the reference: its values cross through ``repro_torch.bridge``.
+
+    ``device="meta"`` records shapes and dtypes without allocating."""
+    generator: torch.Generator | None
+    device: torch.device = torch.device("cpu")
+    params: dict = field(default_factory=dict)
+    dims: dict = field(default_factory=dict)
+
+    def weight(self, path: str, shape: Sequence[int], dims: Sequence[str],
+               dtype=BF16, scale: float | None = None,
+               stack: int | None = None) -> None:
+        """Register a weight; ``stack`` prepends a layer-stack axis
+        (dims gets a leading "layers")."""
+        shape = tuple(shape)
+        fan_in = shape[0] if shape else 1
+        std = scale if scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
+        full = (stack,) + shape if stack else shape
+        full_dims = (("layers",) + tuple(dims)) if stack else tuple(dims)
+        if self.device.type == "meta":
+            leaf = torch.empty(full, dtype=dtype, device=self.device)
+        else:
+            leaf = (torch.randn(full, generator=self.generator, dtype=F32,
+                                device=self.device) * std).to(dtype)
+        _set(self.params, path, leaf)
+        _set(self.dims, path, full_dims)
+
+    def _const(self, value: float, path, shape, dims, dtype, stack):
+        full = ((stack,) + tuple(shape)) if stack else tuple(shape)
+        full_dims = (("layers",) + tuple(dims)) if stack else tuple(dims)
+        if self.device.type == "meta":
+            leaf = torch.empty(full, dtype=dtype, device=self.device)
+        else:
+            leaf = torch.full(full, value, dtype=dtype, device=self.device)
+        _set(self.params, path, leaf)
+        _set(self.dims, path, full_dims)
+
+    def ones(self, path: str, shape: Sequence[int], dims: Sequence[str],
+             dtype=F32, stack: int | None = None) -> None:
+        self._const(1.0, path, shape, dims, dtype, stack)
+
+    def zeros(self, path: str, shape: Sequence[int], dims: Sequence[str],
+              dtype=F32, stack: int | None = None) -> None:
+        self._const(0.0, path, shape, dims, dtype, stack)
+
+
+def _set(tree: dict, path: str, leaf: Any) -> None:
+    keys = path.split("/")
+    for k in keys[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[keys[-1]] = leaf
+
+
+def tree_get(tree: dict, path: str) -> Any:
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(F32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps) * scale.to(F32)
+    return y.to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(F32)
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    y = y * scale.to(F32) + bias.to(F32)
+    return y.to(dtype)
+
+
+def apply_norm(kind: str, x: torch.Tensor, p: dict,
+               use_kernels: bool = False) -> torch.Tensor:
+    """``use_kernels`` routes RMS norms through the hand-written kernel
+    (``kernels/rmsnorm``), which computes exactly ``rms_norm``."""
+    if kind == "rms":
+        if use_kernels:
+            from ..kernels.rmsnorm import ops as rms_ops
+            return rms_ops.rmsnorm(x, p["scale"])
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+def init_norm(pb: ParamBuilder, path: str, kind: str, d: int,
+              stack: int | None = None) -> None:
+    pb.ones(f"{path}/scale", (d,), ("d_model",), stack=stack)
+    if kind != "rms":
+        pb.zeros(f"{path}/bias", (d,), ("d_model",), stack=stack)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings (with partial-rotary support)
+# --------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, rot_dim: int,
+                base: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) → cos/sin (..., S, rot_dim//2).  The inverse
+    frequencies come from numpy in float64, as in the reference, and the
+    product with the positions is taken in f32."""
+    inv = 1.0 / (base ** (np.arange(0, rot_dim, 2) / rot_dim))
+    inv_t = torch.tensor(inv, dtype=F32, device=positions.device)
+    ang = positions[..., None].to(F32) * inv_t
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               rot_dim: int) -> torch.Tensor:
+    """x (B,S,H,Dh); rotate the first ``rot_dim`` features, pass the rest
+    through.  The pairs are interleaved (``0::2`` with ``1::2``), not
+    split in halves."""
+    rot, rest = x[..., :rot_dim], x[..., rot_dim:]
+    r1, r2 = rot[..., 0::2], rot[..., 1::2]
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    o1 = r1 * cos - r2 * sin
+    o2 = r2 * cos + r1 * sin
+    out = torch.stack([o1, o2], dim=-1).reshape(rot.shape)
+    return torch.cat([out.to(x.dtype), rest], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# SwiGLU MLP
+# --------------------------------------------------------------------------
+
+def init_mlp(pb: ParamBuilder, path: str, d: int, d_ff: int,
+             stack: int | None = None) -> None:
+    pb.weight(f"{path}/w_in", (d, 2, d_ff), ("d_model", "two", "d_ff"),
+              stack=stack)
+    pb.weight(f"{path}/w_out", (d_ff, d), ("d_ff", "d_model"), stack=stack)
+
+
+def mlp(x: torch.Tensor, p: dict, constrain=lambda t, d, s=None: t
+        ) -> torch.Tensor:
+    w_in = p["w_in"]
+    h = (x @ w_in.reshape(w_in.shape[0], -1)).unflatten(-1, w_in.shape[1:])
+    h = constrain(h, ("batch", "seq", None, "d_ff"), "ffn_hidden")
+    gate, up = h[..., 0, :], h[..., 1, :]
+    act = F.silu(gate.to(F32)).to(x.dtype) * up
+    return act @ p["w_out"]

@@ -1,0 +1,292 @@
+"""Decoder LM assembly: the dense family with the tokens frontend.
+
+Counterpart of ``repro.models.lm``.  Parameters keep the reference's
+paths and layout (``group0/b0/mix/w_q`` of shape ``(layers, D, H, Dh)``
+for a stacked group); where the reference runs ``lax.scan`` over the
+stacked ``layers`` axis, this module loops over it.
+
+Entry points:
+
+* ``logits_fn(params, batch)`` — full-sequence logits (teacher forcing).
+* ``prefill(params, batch)`` — full-sequence forward; returns the
+  last-position logits (as the reference does; it returns no caches).
+* ``decode_step(params, batch, caches)`` — one-token step with KV caches,
+  scalar or per-slot positions, optional ``active`` gating.
+* ``init_caches(B, S_max, vector_pos=)`` — zero caches in the reference's
+  pytree layout.
+
+With ``use_kernels=True`` the full-sequence attention runs the flash
+attention kernel and every RMS norm runs the RMSNorm kernel.  The
+reference routes only attention through its kernel; its RMSNorm kernel
+computes exactly ``rms_norm`` and is wired in here so that the serving
+loop, whose attention is the plain ``_sdpa`` over the cache, runs a kernel
+of its own.
+
+Families outside this slice raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from .. import resolve_device
+from ..bridge import params_from_numpy
+from ..configs.base import ArchConfig
+from .attention import KVCache, gqa_attention, init_gqa
+from .layers import BF16, ParamBuilder, apply_norm, init_mlp, init_norm, mlp
+
+
+def _noop_constrain(x, dims, site=None):
+    return x
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not port."""
+    todo = []
+    if cfg.moe is not None:
+        todo.append("MoE FFN (ROADMAP A9)")
+    if cfg.mla is not None:
+        todo.append("MLA attention (ROADMAP A9)")
+    if cfg.mamba is not None:
+        todo.append("Mamba blocks (ROADMAP A10)")
+    if cfg.xlstm is not None:
+        todo.append("xLSTM blocks (ROADMAP A11)")
+    if cfg.frontend != "tokens" or cfg.cross_attn_every:
+        todo.append(f"the {cfg.frontend} frontend and cross-attention "
+                    "(ROADMAP A4)")
+    if todo:
+        raise NotImplementedError(f"{cfg.name}: not ported yet: "
+                                  + "; ".join(todo))
+
+
+def _map_cache(fn, *caches):
+    """Apply ``fn`` leaf-wise over KVCache pytrees (dicts of KVCache)."""
+    first = caches[0]
+    if isinstance(first, dict):
+        return {key: _map_cache(fn, *(c[key] for c in caches))
+                for key in first}
+    if isinstance(first, KVCache):
+        return KVCache(*(None if f is None else fn(f, *rest)
+                         for f, *rest in zip(*caches)))
+    return fn(*caches)
+
+
+@dataclass
+class LM:
+    cfg: ArchConfig
+    use_kernels: bool = False
+    device: torch.device | str = "cuda"
+
+    def __post_init__(self):
+        check_ported(self.cfg)
+        self.device = resolve_device(self.device)
+
+    # -- helpers ---------------------------------------------------------------
+    @property
+    def constrain(self) -> Callable:
+        """No plan on one card: the no-op the reference uses for
+        ``plan=None``.  Applying a plan is ROADMAP A8."""
+        return _noop_constrain
+
+    def _groups(self):
+        return self.cfg.layer_groups()
+
+    # -- init --------------------------------------------------------------------
+    def _build(self, pb: ParamBuilder) -> tuple[dict, dict]:
+        cfg = self.cfg
+        pb.weight("embed", (cfg.vocab, cfg.d_model), ("vocab", "d_model"),
+                  scale=0.02)
+        for gi, (pattern, repeats) in enumerate(self._groups()):
+            stack = repeats if repeats > 1 else None
+            for j, (_mix, _ffn) in enumerate(pattern):
+                pfx = f"group{gi}/b{j}"
+                init_norm(pb, f"{pfx}/norm1", cfg.norm, cfg.d_model,
+                          stack=stack)
+                init_gqa(pb, f"{pfx}/mix", cfg, stack=stack)
+                init_norm(pb, f"{pfx}/norm2", cfg.norm, cfg.d_model,
+                          stack=stack)
+                init_mlp(pb, f"{pfx}/ffn", cfg.d_model,
+                         cfg.dense_d_ff or cfg.d_ff, stack=stack)
+        init_norm(pb, "final_norm", cfg.norm, cfg.d_model)
+        if not cfg.tie_embeddings:
+            pb.weight("head", (cfg.d_model, cfg.vocab), ("d_model", "vocab"),
+                      scale=0.02)
+        return pb.params, pb.dims
+
+    def init(self, seed: int = 0) -> tuple[dict, dict]:
+        """Returns (params, dims), drawn on the model's device from a
+        ``torch.Generator`` seeded with ``seed``, at the reference's
+        stds."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return self._build(ParamBuilder(gen, device=self.device))
+
+    def param_shapes(self) -> dict:
+        """The parameter tree on the meta device: paths, shapes, dtypes."""
+        return self._build(ParamBuilder(None, device=torch.device("meta")))[0]
+
+    def load_params(self, tree: dict) -> dict:
+        """Reference params (nested dicts of numpy arrays) → this model's
+        params on its device; paths, shapes and dtypes must match."""
+        return params_from_numpy(tree, self.device, like=self.param_shapes())
+
+    # -- one block ----------------------------------------------------------------
+    def _block(self, resid, bp, mix, ffn, positions, cache=None,
+               active=None):
+        cfg = self.cfg
+        c = self.constrain
+        x = apply_norm(cfg.norm, resid, bp["norm1"], self.use_kernels)
+        out, new_cache = gqa_attention(
+            x, bp["mix"], cfg, positions, c, cache=cache,
+            use_kernels=self.use_kernels and cache is None, active=active)
+        resid = resid + out
+        resid = c(resid, ("batch", "seq", "d_model"), "residual")
+        x2 = apply_norm(cfg.norm, resid, bp["norm2"], self.use_kernels)
+        resid = resid + mlp(x2, bp["ffn"], c)
+        resid = c(resid, ("batch", "seq", "d_model"), "residual2")
+        return resid, new_cache
+
+    def _super_block(self, resid, gparams, pattern, positions,
+                     caches=None, active=None):
+        new_caches = {} if caches is not None else None
+        for j, (mix, ffn) in enumerate(pattern):
+            cache = caches.get(f"b{j}") if caches is not None else None
+            resid, nc = self._block(resid, gparams[f"b{j}"], mix, ffn,
+                                    positions, cache, active)
+            if caches is not None:
+                new_caches[f"b{j}"] = nc
+        return resid, new_caches
+
+    # -- forward -------------------------------------------------------------------
+    def _backbone(self, params, resid, positions, caches=None, active=None):
+        """Runs all layer groups; returns (resid, new_caches)."""
+        new_caches = {} if caches is not None else None
+        for gi, (pattern, repeats) in enumerate(self._groups()):
+            gparams = params[f"group{gi}"]
+            gcaches = caches.get(f"group{gi}") if caches is not None else None
+            if repeats == 1:
+                resid, nc = self._super_block(resid, gparams, pattern,
+                                              positions, gcaches, active)
+                if caches is not None:
+                    new_caches[f"group{gi}"] = nc
+                continue
+            # the loop that replaces lax.scan over the stacked layers axis
+            per_layer = []
+            for i in range(repeats):
+                lp = _map_cache(lambda t, i=i: t[i], gparams)
+                lc = (_map_cache(lambda t, i=i: t[i], gcaches)
+                      if caches is not None else None)
+                resid, nc = self._super_block(resid, lp, pattern, positions,
+                                              lc, active)
+                per_layer.append(nc)
+            if caches is not None:
+                # k/v were written in place through the per-layer views;
+                # only the positions are new tensors.
+                new_caches[f"group{gi}"] = {
+                    b: KVCache(c.k, c.v,
+                               torch.stack([nc[b].pos for nc in per_layer]))
+                    for b, c in gcaches.items()}
+        return resid, new_caches
+
+    def _embed(self, params, batch):
+        resid = params["embed"][batch["tokens"]].to(BF16)
+        return self.constrain(resid, ("batch", "seq", "d_model"),
+                              "embed_out")
+
+    def _head(self, params, resid):
+        cfg = self.cfg
+        x = apply_norm(cfg.norm, resid, params["final_norm"],
+                       self.use_kernels)
+        table = (params["embed"].T if cfg.tie_embeddings
+                 else params["head"])
+        logits = x @ table.to(BF16)
+        return self.constrain(logits, ("batch", "seq", "vocab"), "logits")
+
+    def _positions(self, B: int, S: int) -> torch.Tensor:
+        return torch.arange(S, device=self.device).expand(B, S)
+
+    def logits_fn(self, params, batch) -> torch.Tensor:
+        """Full-sequence logits (teacher forcing)."""
+        B, S = batch["tokens"].shape
+        resid = self._embed(params, batch)
+        resid, _ = self._backbone(params, resid, self._positions(B, S))
+        return self._head(params, resid)
+
+    def prefill(self, params, batch) -> torch.Tensor:
+        """Full-sequence forward returning the last-position logits
+        ``(B, 1, vocab)``."""
+        B, S = batch["tokens"].shape
+        resid = self._embed(params, batch)
+        resid, _ = self._backbone(params, resid, self._positions(B, S))
+        return self._head(params, resid[:, -1:])
+
+    def decode_step(self, params, batch, caches) -> tuple[torch.Tensor, dict]:
+        """One-token step: ``batch`` holds the current token ``(B,1)`` and
+        the position — a scalar (lock-step batch) or a per-slot ``(B,)``
+        vector (caches from ``init_caches(vector_pos=True)``).
+
+        ``batch["active"]`` (optional, ``(B,)`` bool, vector positions
+        only) gates the cache write-back per slot: an inactive slot's
+        caches come out bit-identical to never stepping.  The k/v caches
+        are updated in place, so the ``caches`` passed in are the ones
+        returned, with new position tensors."""
+        B = batch["tokens"].shape[0]
+        pos = batch["pos"]
+        positions = pos[:, None] if pos.ndim else pos.expand(B, 1)
+        active = batch.get("active")
+        resid = self._embed(params, batch)
+        resid, new_caches = self._backbone(params, resid, positions,
+                                           caches=caches, active=active)
+        if active is not None:
+            new_caches = self._gate_caches(active, caches, new_caches)
+        logits = self._head(params, resid)
+        return logits, new_caches
+
+    def _gate_caches(self, active, old, new):
+        """Per-slot select between the stepped and the previous cache
+        leaves.  The batch axis is 0, or 1 inside a stacked group whose
+        leading axis is ``layers``.  Leaves written in place were gated at
+        the write (``attention._write_cache``) and pass through."""
+        out: dict = {}
+        for gi, (_pattern, repeats) in enumerate(self._groups()):
+            ax = 1 if repeats > 1 else 0
+            B = active.shape[0]
+
+            def sel(o, n, ax=ax):
+                if n is o:
+                    return n
+                shape = [1] * n.ndim
+                shape[ax] = B
+                return torch.where(active.reshape(shape), n, o)
+
+            g = f"group{gi}"
+            out[g] = _map_cache(sel, old[g], new[g])
+        return out
+
+    # -- serving -------------------------------------------------------------------
+    def init_caches(self, B: int, S_max: int,
+                    vector_pos: bool = False) -> dict:
+        """Zero caches ``{"group0": {"b0": KVCache(k, v, pos)}}`` with
+        ``k``/``v`` of shape ``([layers,] B, S_max, KVH, Dh)``.
+
+        ``vector_pos=True`` makes every position a per-slot ``(B,)``
+        vector, as the continuous-batching server needs."""
+        cfg = self.cfg
+        KVH, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+        pos_shape = (B,) if vector_pos else ()
+        caches: dict = {}
+        for gi, (pattern, repeats) in enumerate(self._groups()):
+            lead = (repeats,) if repeats > 1 else ()
+
+            def z(shape, dtype=BF16, lead=lead):
+                return torch.zeros(lead + shape, dtype=dtype,
+                                   device=self.device)
+
+            caches[f"group{gi}"] = {
+                f"b{j}": KVCache(z((B, S_max, KVH, Dh)),
+                                 z((B, S_max, KVH, Dh)),
+                                 z(pos_shape, torch.int32))
+                for j in range(len(pattern))}
+        return caches

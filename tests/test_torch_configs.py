@@ -1,0 +1,42 @@
+"""The port's config registry equals the reference's, arch for arch."""
+import dataclasses
+
+import pytest
+
+from repro import configs as jcfg
+from repro_torch import configs as tcfg
+
+ARCHS = jcfg.list_archs()
+
+
+def test_registry_lists_the_same_archs():
+    assert tcfg.list_archs() == ARCHS
+    # the synthetic compiler graphs wait for the compiler slice
+    assert not hasattr(tcfg, "get_synth")
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_and_layer_groups_match(arch, smoke):
+    ref = jcfg.get_config(arch, smoke=smoke)
+    got = tcfg.get_config(arch, smoke=smoke)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert got.layer_groups() == ref.layer_groups()
+    assert got.layer_kinds() == ref.layer_kinds()
+    assert got.resolved_head_dim == ref.resolved_head_dim
+
+
+def test_shapes_match():
+    assert {k: dataclasses.asdict(v) for k, v in tcfg.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jcfg.SHAPES.items()}
+    for arch in ARCHS:
+        for name in jcfg.SHAPES:
+            assert tcfg.shape_applicable(tcfg.get_config(arch),
+                                         tcfg.SHAPES[name]) == \
+                jcfg.shape_applicable(jcfg.get_config(arch),
+                                      jcfg.SHAPES[name])
+
+
+def test_unknown_arch_raises():
+    with pytest.raises(KeyError, match="unknown arch"):
+        tcfg.get_config("no-such-model")

@@ -1,0 +1,102 @@
+"""The port's CUDA kernels on the card, each against its plain version.
+
+Every test here is marked ``gpu`` and skips without a card.  The file
+imports no JAX, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rmsnorm import ops as trms
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.models.lm import LM
+from torch_parity import DTYPES, cuda, f32, tol, torch_dtype  # noqa: F401
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R,D", [(8, 576), (4096, 576), (33, 96)])
+def test_rmsnorm_kernel(cuda, dtype, R, D):
+    gen = torch.Generator(device=cuda).manual_seed(R)
+    x = torch.randn(R, D, generator=gen, device=cuda).to(torch_dtype(dtype))
+    s = torch.randn(D, generator=gen, device=cuda) + 1.0
+    before = trms.rmsnorm.launches
+    got = trms.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert trms.rmsnorm.launches == before + 1
+    np.testing.assert_allclose(f32(got), f32(rmsnorm_ref(x, s)),
+                               **tol(dtype))
+
+
+def test_rmsnorm_kernel_refuses(cuda):
+    with pytest.raises(ValueError, match="D % 8"):
+        trms.rmsnorm(torch.ones(2, 12, device=cuda),
+                     torch.ones(12, device=cuda))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        trms.rmsnorm(torch.ones(2, 16, device=cuda, dtype=torch.float16),
+                     torch.ones(16, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,Dh,causal,window", [
+    (4, 1024, 1024, 9, 3, 64, True, None),
+    (4, 1024, 1024, 9, 3, 64, True, 96),
+    (2, 1000, 1000, 3, 3, 64, True, None),
+    (2, 128, 256, 4, 4, 32, False, None),
+    (1, 300, 300, 8, 2, 128, True, None),
+    (1, 77, 77, 3, 1, 16, True, 16),
+])
+def test_flash_attention_kernel(cuda, dtype, B, Sq, Skv, H, KVH, Dh, causal,
+                                window):
+    gen = torch.Generator(device=cuda).manual_seed(Sq + H)
+    td = torch_dtype(dtype)
+    q = torch.randn(B, Sq, H, Dh, generator=gen, device=cuda).to(td)
+    k = torch.randn(B, Skv, KVH, Dh, generator=gen, device=cuda).to(td)
+    v = torch.randn(B, Skv, KVH, Dh, generator=gen, device=cuda).to(td)
+    qk, kk, vk = tfa.to_kernel_layout(q, k, v)
+    before = tfa.flash_attention.launches
+    got = tfa.mha(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = tfa.from_kernel_layout(
+        attention_ref(qk, kk, vk, causal=causal, window=window), B)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+def test_flash_attention_kernel_refuses(cuda):
+    q = torch.ones(1, 1, 8, 80, device=cuda)
+    k = torch.ones(1, 8, 80, device=cuda)
+    with pytest.raises(NotImplementedError, match="Dh"):
+        tfa.flash_attention(q, k, k)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tfa.flash_attention(q[..., :64].half(), k[..., :64].half(),
+                            k[..., :64].half())
+
+
+@pytest.fixture
+def smoke_lm(cuda):
+    cfg = get_config("smollm-135m", smoke=True)
+    lm = LM(cfg, use_kernels=True, device=cuda)
+    params, _ = lm.init(0)
+    return lm, params
+
+
+def test_prefill_runs_the_kernels(cuda, smoke_lm):
+    lm_k, params = smoke_lm
+    cfg = lm_k.cfg
+    lm_p = LM(cfg, use_kernels=False, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda)
+    fa0, rms0 = tfa.flash_attention.launches, trms.rmsnorm.launches
+    got = lm_k.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches - fa0 == cfg.n_layers
+    assert trms.rmsnorm.launches - rms0 == 2 * cfg.n_layers + 1
+    want = lm_p.prefill(params, {"tokens": toks})
+    np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)
+

@@ -1,0 +1,133 @@
+"""The port's kernel wrappers against the reference's Pallas kernels.
+
+On the CPU a wrapper computes its kernel's plain version; the Pallas
+kernels run in interpret mode, as ``test_kernels.py`` runs them.  The CUDA
+kernels themselves are held to their plain versions on the card by
+``test_torch_gpu.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfa
+from repro.kernels.flash_attention.ref import attention_ref as j_attention
+from repro.kernels.rmsnorm import ops as jrms
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.rmsnorm import ops as trms
+from torch_parity import DTYPES, both, f32, tol
+
+# -- rmsnorm --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R,D,rb", [(64, 128, 16), (32, 96, 32)])
+def test_rmsnorm_matches_pallas(dtype, R, D, rb):
+    rng = np.random.default_rng(R + D)
+    xj, xt = both(rng.normal(size=(R, D)), dtype)
+    sj, st = both(rng.normal(size=(D,)) + 1.0, "float32")
+    want = jrms.rmsnorm(xj, sj, row_block=rb)
+    got = trms.rmsnorm(xt, st)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_flattens_leading_dims(dtype):
+    rng = np.random.default_rng(7)
+    xj, xt = both(rng.normal(size=(2, 3, 5, 64)), dtype)
+    sj, st = both(rng.normal(size=(64,)) + 1.0, "float32")
+    want = jrms.rmsnorm(xj, sj)
+    got = trms.rmsnorm(xt, st)
+    assert got.shape == xt.shape
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+# -- flash attention ---------------------------------------------------------
+
+
+def _mha_inputs(rng, B, Sq, Skv, H, KVH, Dh, dtype):
+    q = rng.normal(size=(B, Sq, H, Dh))
+    k = rng.normal(size=(B, Skv, KVH, Dh))
+    v = rng.normal(size=(B, Skv, KVH, Dh))
+    return [both(a, dtype) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,Dh,causal,window,qb,kb", [
+    (2, 128, 128, 4, 2, 32, True, None, 64, 64),
+    (1, 256, 256, 3, 1, 16, True, 96, 64, 128),
+    (2, 128, 256, 4, 4, 64, False, None, 128, 128),
+    (1, 512, 512, 8, 2, 128, True, None, 128, 256),
+])
+def test_mha_matches_pallas(dtype, B, Sq, Skv, H, KVH, Dh, causal, window,
+                            qb, kb):
+    rng = np.random.default_rng(Sq + H)
+    (qj, qt), (kj, kt), (vj, vt) = _mha_inputs(rng, B, Sq, Skv, H, KVH, Dh,
+                                               dtype)
+    want = jfa.mha(qj, kj, vj, causal=causal, window=window, q_block=qb,
+                   kv_block=kb)
+    got = tfa.mha(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == qt.dtype and tuple(got.shape) == (B, Sq, H, Dh)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (100, 100, True, None),
+    (77, 77, True, 16),
+    (50, 70, False, None),
+])
+def test_mha_ragged_lengths(dtype, Sq, Skv, causal, window):
+    """Lengths that no block size divides: the Pallas kernel asserts
+    divisibility, so the plain oracle stands in for it."""
+    rng = np.random.default_rng(Sq * Skv)
+    B, H, KVH, Dh = 2, 6, 2, 32
+    (qj, qt), (kj, kt), (vj, vt) = _mha_inputs(rng, B, Sq, Skv, H, KVH, Dh,
+                                               dtype)
+    qk, kk, vk = tfa.to_kernel_layout(qt, kt, vt)
+    want = j_attention(*(jnp.asarray(f32(t), getattr(jnp, dtype))
+                         for t in (qk, kk, vk)), causal=causal,
+                       window=window)
+    got = tfa.flash_attention(qk, kk, vk, causal=causal, window=window)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+    back = tfa.mha(qt, kt, vt, causal=causal, window=window)
+    assert torch.equal(back, tfa.from_kernel_layout(got, B))
+
+
+def test_layout_round_trip():
+    q = torch.randn(2, 9, 6, 16)
+    k = torch.randn(2, 9, 2, 16)
+    qk, kk, vk = tfa.to_kernel_layout(q, k, k)
+    assert tuple(qk.shape) == (4, 3, 9, 16) and tuple(kk.shape) == (4, 9, 16)
+    # head h = kvh * G + g, as the reference's reshape groups it
+    assert torch.equal(qk[1 * 2 + 1, 2], q[1, :, 1 * 3 + 2])
+    assert torch.equal(tfa.from_kernel_layout(qk, 2), q)
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.empty(4, 64, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        trms.rmsnorm(x, torch.empty(64, device="meta"))
+    q = torch.empty(2, 3, 8, 16, device="meta")
+    k = torch.empty(2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        tfa.flash_attention(q, k, k)
+
+
+def test_cpu_path_launches_nothing():
+    before = (trms.rmsnorm.launches, tfa.flash_attention.launches)
+    trms.rmsnorm(torch.randn(3, 16), torch.ones(16))
+    tfa.mha(torch.randn(1, 8, 2, 16), torch.randn(1, 8, 1, 16),
+            torch.randn(1, 8, 1, 16))
+    assert (trms.rmsnorm.launches, tfa.flash_attention.launches) == before
+
+
+def test_build_sources_and_flags():
+    assert _build.sources() == ["flash_attention", "rmsnorm"]
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+    # the library name carries a hash of its sources and flags
+    assert _build._lib_path("rmsnorm") != _build._lib_path("flash_attention")
+    assert _build._lib_path("rmsnorm").parent == _build.BUILD_DIR

@@ -1,0 +1,60 @@
+"""Helpers shared by the PyTorch port's parity tests (``test_torch_*.py``).
+
+Inputs are drawn with numpy and handed to both packages; results come
+back as float32 numpy arrays and are compared at the tolerances
+``test_kernels.py`` uses: 2e-2 for bf16, 2e-4 for f32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+#: every torch test runs single-threaded: the suite runs several pytest
+#: workers side by side, and the sizes here are small.
+torch.set_num_threads(1)
+
+DTYPES = ("float32", "bfloat16")
+
+
+def tol(dtype: str) -> dict:
+    """Tolerance by working dtype (``test_kernels.py``'s)."""
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+            else dict(rtol=2e-4, atol=2e-4))
+
+
+def torch_dtype(dtype: str) -> torch.dtype:
+    return getattr(torch, dtype)
+
+
+def f32(x) -> np.ndarray:
+    """A jax array, torch tensor or numpy array as f32 numpy (exact for
+    bf16)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def both(a: np.ndarray, dtype: str):
+    """The same numpy array as a jax array and a CPU torch tensor, both
+    rounded to ``dtype``."""
+    import jax.numpy as jnp
+    j = jnp.asarray(a, getattr(jnp, dtype))
+    t = torch.as_tensor(np.asarray(a, np.float32)).to(torch_dtype(dtype))
+    return j, t
+
+
+def numpy_tree(tree):
+    """A jax param pytree as nested dicts of numpy arrays (bf16 leaves as
+    ml_dtypes bfloat16), the bridge's input."""
+    import jax
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture
+def cuda() -> torch.device:
+    """The card, for tests marked ``gpu``.  Decided here, when the test
+    runs, so every pytest worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card: see README)")
+    return torch.device("cuda")
