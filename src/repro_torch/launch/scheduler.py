@@ -232,8 +232,9 @@ class ContinuousBatcher:
             row = logits[:, -1]
             last = row if last is None else torch.where(
                 (lengths_t - 1 == t)[:, None], row, last)
-        # install: the batch axis of every leaf is 0, or 1 inside a
-        # stacked group whose leading axis is layers.
+        # install every leaf of each block's cache (KVCache, MLSTMState,
+        # SLSTMState): the batch axis is 0, or 1 inside a stacked group
+        # whose leading axis is layers.
         slot_vec = torch.as_tensor([s for s, _ in pairs], device=dev)
         for gi, (_pattern, repeats) in enumerate(lm._groups()):
             g = f"group{gi}"

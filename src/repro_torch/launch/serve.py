@@ -4,12 +4,18 @@
         --slots 8 --requests 16 --prompt-len-range 16 256 \\
         --gen-range 32 128
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+        --smoke --device cpu
+
 Counterpart of ``repro.launch.serve`` without the sharding plan: on one
 card ``constrain`` is a no-op, and fetching and applying a plan wait for
 ROADMAP A8/A14, so the driver prints ``plan: skipped``.  The model runs
 with ``use_kernels=True``: the RMSNorm kernel at every norm site of
-every decode step.  ``--device cpu`` runs the same path on the CPU with
-the kernels' plain versions.
+every decode step.  Prompts are prefilled as decode steps, so attention
+reads the KV cache and the mLSTM runs its step form there; the
+flash-attention and mLSTM chunkwise kernels serve ``LM.prefill``.
+``--device cpu`` runs the same path on the CPU with the kernels' plain
+versions.
 
 The request trace comes from its own numpy stream; the parameters from a
 ``torch.Generator`` seeded with ``--seed``; sampling draws are keyed per

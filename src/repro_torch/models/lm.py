@@ -1,4 +1,5 @@
-"""Decoder LM assembly: the dense family with the tokens frontend.
+"""Decoder LM assembly: the dense and xLSTM families with the tokens
+frontend.
 
 Counterpart of ``repro.models.lm``.  Parameters keep the reference's
 paths and layout (``group0/b0/mix/w_q`` of shape ``(layers, D, H, Dh)``
@@ -10,14 +11,16 @@ Entry points:
 * ``logits_fn(params, batch)`` — full-sequence logits (teacher forcing).
 * ``prefill(params, batch)`` — full-sequence forward; returns the
   last-position logits (as the reference does; it returns no caches).
-* ``decode_step(params, batch, caches)`` — one-token step with KV caches,
-  scalar or per-slot positions, optional ``active`` gating.
+* ``decode_step(params, batch, caches)`` — one-token step with KV or
+  xLSTM state caches, scalar or per-slot positions, optional ``active``
+  gating.
 * ``init_caches(B, S_max, vector_pos=)`` — zero caches in the reference's
   pytree layout.
 
 With ``use_kernels=True`` the full-sequence attention runs the flash
-attention kernel and every RMS norm runs the RMSNorm kernel.  The
-reference routes only attention through its kernel; its RMSNorm kernel
+attention kernel, the full-sequence mLSTM the chunkwise kernel, and every
+RMS norm the RMSNorm kernel.  The reference routes only attention and the
+mLSTM through its kernels; its RMSNorm kernel
 computes exactly ``rms_norm`` and is wired in here so that the serving
 loop, whose attention is the plain ``_sdpa`` over the cache, runs a kernel
 of its own.
@@ -36,7 +39,10 @@ from .. import resolve_device
 from ..bridge import params_from_numpy
 from ..configs.base import ArchConfig
 from .attention import KVCache, gqa_attention, init_gqa
-from .layers import BF16, ParamBuilder, apply_norm, init_mlp, init_norm, mlp
+from .layers import (BF16, F32, ParamBuilder, apply_norm, init_mlp,
+                     init_norm, mlp)
+from .xlstm import (MLSTMState, SLSTMState, init_mlstm, init_slstm,
+                    mlstm_block, slstm_block)
 
 
 def _noop_constrain(x, dims, site=None):
@@ -44,7 +50,8 @@ def _noop_constrain(x, dims, site=None):
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+    """Raise ``NotImplementedError`` for what is not ported yet: the
+    dense and xLSTM families with the tokens frontend are."""
     todo = []
     if cfg.moe is not None:
         todo.append("MoE FFN (ROADMAP A9)")
@@ -52,26 +59,45 @@ def check_ported(cfg: ArchConfig) -> None:
         todo.append("MLA attention (ROADMAP A9)")
     if cfg.mamba is not None:
         todo.append("Mamba blocks (ROADMAP A10)")
-    if cfg.xlstm is not None:
-        todo.append("xLSTM blocks (ROADMAP A11)")
     if cfg.frontend != "tokens" or cfg.cross_attn_every:
         todo.append(f"the {cfg.frontend} frontend and cross-attention "
                     "(ROADMAP A4)")
     if todo:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: "
-                                  + "; ".join(todo))
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet (the port runs the dense and "
+            "xLSTM families): " + "; ".join(todo))
 
 
 def _map_cache(fn, *caches):
-    """Apply ``fn`` leaf-wise over KVCache pytrees (dicts of KVCache)."""
+    """Apply ``fn`` leaf-wise over cache or param pytrees: dicts and
+    NamedTuples of tensors, ``None`` leaves kept."""
     first = caches[0]
     if isinstance(first, dict):
         return {key: _map_cache(fn, *(c[key] for c in caches))
                 for key in first}
-    if isinstance(first, KVCache):
-        return KVCache(*(None if f is None else fn(f, *rest)
-                         for f, *rest in zip(*caches)))
+    if isinstance(first, tuple):
+        return type(first)(*(None if f is None else _map_cache(fn, f, *rest)
+                             for f, *rest in zip(*caches)))
     return fn(*caches)
+
+
+def _stack_layers(old, given, new):
+    """The stacked cache of a group from its per-layer caches, as
+    ``lax.scan`` stacks them: ``given[i]`` is the view of ``old`` that
+    layer ``i`` was handed, ``new[i]`` what it returned.  A leaf that
+    every layer returned as the very view it was given was written in
+    place (attention k/v), so the stacked ``old`` leaf holds it; every
+    other leaf is stacked anew."""
+    if isinstance(old, dict):
+        return {key: _stack_layers(old[key], [g[key] for g in given],
+                                   [n[key] for n in new]) for key in old}
+    if isinstance(old, tuple):
+        return type(old)(*(_stack_layers(o, [g[j] for g in given],
+                                         [n[j] for n in new])
+                           for j, o in enumerate(old)))
+    if all(n is g for n, g in zip(new, given)):
+        return old
+    return torch.stack(new)
 
 
 @dataclass
@@ -101,15 +127,24 @@ class LM:
                   scale=0.02)
         for gi, (pattern, repeats) in enumerate(self._groups()):
             stack = repeats if repeats > 1 else None
-            for j, (_mix, _ffn) in enumerate(pattern):
+            for j, (mix, ffn) in enumerate(pattern):
                 pfx = f"group{gi}/b{j}"
                 init_norm(pb, f"{pfx}/norm1", cfg.norm, cfg.d_model,
                           stack=stack)
-                init_gqa(pb, f"{pfx}/mix", cfg, stack=stack)
-                init_norm(pb, f"{pfx}/norm2", cfg.norm, cfg.d_model,
-                          stack=stack)
-                init_mlp(pb, f"{pfx}/ffn", cfg.d_model,
-                         cfg.dense_d_ff or cfg.d_ff, stack=stack)
+                if mix == "attn":
+                    init_gqa(pb, f"{pfx}/mix", cfg, stack=stack)
+                elif mix == "mlstm":
+                    init_mlstm(pb, f"{pfx}/mix", cfg, stack=stack)
+                elif mix == "slstm":
+                    init_slstm(pb, f"{pfx}/mix", cfg, stack=stack)
+                else:
+                    raise NotImplementedError(f"mixer {mix!r}")
+                if ffn != "none":
+                    init_norm(pb, f"{pfx}/norm2", cfg.norm, cfg.d_model,
+                              stack=stack)
+                if ffn == "dense":
+                    init_mlp(pb, f"{pfx}/ffn", cfg.d_model,
+                             cfg.dense_d_ff or cfg.d_ff, stack=stack)
         init_norm(pb, "final_norm", cfg.norm, cfg.d_model)
         if not cfg.tie_embeddings:
             pb.weight("head", (cfg.d_model, cfg.vocab), ("d_model", "vocab"),
@@ -138,13 +173,32 @@ class LM:
         cfg = self.cfg
         c = self.constrain
         x = apply_norm(cfg.norm, resid, bp["norm1"], self.use_kernels)
-        out, new_cache = gqa_attention(
-            x, bp["mix"], cfg, positions, c, cache=cache,
-            use_kernels=self.use_kernels and cache is None, active=active)
+        new_cache = None
+        if mix == "attn":
+            out, new_cache = gqa_attention(
+                x, bp["mix"], cfg, positions, c, cache=cache,
+                use_kernels=self.use_kernels and cache is None,
+                active=active)
+        elif mix == "mlstm":
+            if cache is not None:
+                out, new_cache = mlstm_block(x, bp["mix"], cfg, c,
+                                             state=cache)
+            else:
+                out = mlstm_block(x, bp["mix"], cfg, c,
+                                  use_kernels=self.use_kernels)
+        elif mix == "slstm":
+            if cache is not None:
+                out, new_cache = slstm_block(x, bp["mix"], cfg, c,
+                                             state=cache)
+            else:
+                out = slstm_block(x, bp["mix"], cfg, c)
+        else:
+            raise NotImplementedError(f"mixer {mix!r}")
         resid = resid + out
         resid = c(resid, ("batch", "seq", "d_model"), "residual")
-        x2 = apply_norm(cfg.norm, resid, bp["norm2"], self.use_kernels)
-        resid = resid + mlp(x2, bp["ffn"], c)
+        if ffn == "dense":
+            x2 = apply_norm(cfg.norm, resid, bp["norm2"], self.use_kernels)
+            resid = resid + mlp(x2, bp["ffn"], c)
         resid = c(resid, ("batch", "seq", "d_model"), "residual2")
         return resid, new_cache
 
@@ -173,21 +227,18 @@ class LM:
                     new_caches[f"group{gi}"] = nc
                 continue
             # the loop that replaces lax.scan over the stacked layers axis
-            per_layer = []
+            given, per_layer = [], []
             for i in range(repeats):
                 lp = _map_cache(lambda t, i=i: t[i], gparams)
                 lc = (_map_cache(lambda t, i=i: t[i], gcaches)
                       if caches is not None else None)
                 resid, nc = self._super_block(resid, lp, pattern, positions,
                                               lc, active)
+                given.append(lc)
                 per_layer.append(nc)
             if caches is not None:
-                # k/v were written in place through the per-layer views;
-                # only the positions are new tensors.
-                new_caches[f"group{gi}"] = {
-                    b: KVCache(c.k, c.v,
-                               torch.stack([nc[b].pos for nc in per_layer]))
-                    for b, c in gcaches.items()}
+                new_caches[f"group{gi}"] = _stack_layers(gcaches, given,
+                                                         per_layer)
         return resid, new_caches
 
     def _embed(self, params, batch):
@@ -268,25 +319,40 @@ class LM:
     # -- serving -------------------------------------------------------------------
     def init_caches(self, B: int, S_max: int,
                     vector_pos: bool = False) -> dict:
-        """Zero caches ``{"group0": {"b0": KVCache(k, v, pos)}}`` with
-        ``k``/``v`` of shape ``([layers,] B, S_max, KVH, Dh)``.
+        """Zero caches ``{"group0": {"b0": cache}}``, each leaf with a
+        leading ``layers`` axis inside a stacked group: ``KVCache(k, v,
+        pos)`` with ``k``/``v`` of shape ``(B, S_max, KVH, Dh)`` for
+        attention, ``MLSTMState(C, n, m)`` and ``SLSTMState(c, n, h, m)``
+        in f32 for the xLSTM mixers (``m`` starts at 0, as the
+        reference's caches do).
 
         ``vector_pos=True`` makes every position a per-slot ``(B,)``
         vector, as the continuous-batching server needs."""
-        cfg = self.cfg
-        KVH, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
-        pos_shape = (B,) if vector_pos else ()
         caches: dict = {}
         for gi, (pattern, repeats) in enumerate(self._groups()):
-            lead = (repeats,) if repeats > 1 else ()
-
-            def z(shape, dtype=BF16, lead=lead):
-                return torch.zeros(lead + shape, dtype=dtype,
-                                   device=self.device)
-
             caches[f"group{gi}"] = {
-                f"b{j}": KVCache(z((B, S_max, KVH, Dh)),
-                                 z((B, S_max, KVH, Dh)),
-                                 z(pos_shape, torch.int32))
-                for j in range(len(pattern))}
+                f"b{j}": self._block_cache(mix, B, S_max, repeats,
+                                           vector_pos)
+                for j, (mix, _ffn) in enumerate(pattern)}
         return caches
+
+    def _block_cache(self, mix, B, S_max, repeats, vector_pos):
+        cfg = self.cfg
+        lead = (repeats,) if repeats > 1 else ()
+
+        def z(shape, dtype=BF16):
+            return torch.zeros(lead + shape, dtype=dtype, device=self.device)
+
+        if mix == "attn":
+            KVH, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+            return KVCache(z((B, S_max, KVH, Dh)), z((B, S_max, KVH, Dh)),
+                           z((B,) if vector_pos else (), torch.int32))
+        if mix == "mlstm":
+            H = cfg.n_heads
+            Dh = cfg.xlstm.proj_factor_mlstm * cfg.d_model // H
+            return MLSTMState(z((B, H, Dh, Dh), F32), z((B, H, Dh), F32),
+                              z((B, H), F32))
+        if mix == "slstm":
+            D = cfg.d_model
+            return SLSTMState(*(z((B, D), F32) for _ in range(4)))
+        raise NotImplementedError(f"mixer {mix!r}")

@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.mlstm_chunk import ops as tml
 from repro_torch.kernels.rmsnorm import ops as trms
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.models.lm import LM
@@ -100,3 +101,73 @@ def test_prefill_runs_the_kernels(cuda, smoke_lm):
     want = lm_p.prefill(params, {"tokens": toks})
     np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)
 
+
+#: the reference's tolerance for the mLSTM kernel (``test_kernels.py``)
+MLSTM_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,Dh,chunk", [
+    (4, 1024, 4, 384, 256),    # xlstm-125m prefill
+    (2, 32, 4, 32, 16),        # xlstm smoke
+    (2, 48, 1, 8, 48),
+    (1, 200, 3, 48, 200),      # ragged last chunk, Dh not a tile multiple
+])
+def test_mlstm_chunk_kernel(cuda, dtype, B, S, H, Dh, chunk):
+    gen = torch.Generator(device=cuda).manual_seed(S + Dh)
+    td = torch_dtype(dtype)
+
+    def rnd(*shape, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=cuda)
+                + shift).to(td)
+    q, k, v = (rnd(B, S, H, Dh) for _ in range(3))
+    i_pre, f_pre = rnd(B, S, H), rnd(B, S, H, shift=2.0)
+    before = tml.mlstm_chunk.launches
+    got = tml.mlstm_chunk(q, k, v, i_pre, f_pre, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tml.mlstm_chunk.launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, H * Dh)
+    want = tml.mlstm_chunk_plain(q, k, v, i_pre, f_pre, chunk=chunk)
+    np.testing.assert_allclose(f32(got), f32(want), **MLSTM_TOL)
+
+
+def test_mlstm_chunk_kernel_reads_strided_views(cuda):
+    """q/k/v as views of one qkv projection and i/f as views of one gate
+    projection, as ``mlstm_block`` hands them over."""
+    B, S, H, Dh = 2, 64, 2, 32
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(B, S, 3, H * Dh, generator=gen, device=cuda)
+    gates = torch.randn(B, S, 2, H, generator=gen, device=cuda)
+    q, k, v = (qkv[:, :, i].reshape(B, S, H, Dh) for i in range(3))
+    got = tml.mlstm_chunk(q, k, v, gates[:, :, 0], gates[:, :, 1], chunk=16)
+    want = tml.mlstm_chunk_plain(q, k, v, gates[:, :, 0], gates[:, :, 1],
+                                 chunk=16)
+    np.testing.assert_allclose(f32(got), f32(want), **MLSTM_TOL)
+
+
+def test_mlstm_chunk_kernel_refuses(cuda):
+    x = torch.ones(1, 16, 2, 8, device=cuda)
+    g = torch.ones(1, 16, 2, device=cuda)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tml.mlstm_chunk(x.half(), x.half(), x.half(), g.half(), g.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        tml.mlstm_chunk(x, x, x, g.bfloat16(), g)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        tml.mlstm_chunk(x[:, :12], x[:, :12], x[:, :12], g[:, :12],
+                        g[:, :12], chunk=8)
+
+
+def test_xlstm_prefill_runs_the_kernels(cuda):
+    cfg = get_config("xlstm-125m", smoke=True)
+    lm_k = LM(cfg, use_kernels=True, device=cuda)
+    lm_p = LM(cfg, use_kernels=False, device=cuda)
+    params, _ = lm_k.init(0)
+    toks = torch.randint(0, cfg.vocab, (2, 48), device=cuda)
+    ml0, rms0 = tml.mlstm_chunk.launches, trms.rmsnorm.launches
+    got = lm_k.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    n_m = sum(m == "mlstm" for m, _ in cfg.layer_kinds())
+    assert tml.mlstm_chunk.launches - ml0 == n_m
+    assert trms.rmsnorm.launches - rms0 == cfg.n_layers + 1
+    want = lm_p.prefill(params, {"tokens": toks})
+    np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)

@@ -12,10 +12,14 @@ import torch
 
 from repro.kernels.flash_attention import ops as jfa
 from repro.kernels.flash_attention.ref import attention_ref as j_attention
+from repro.kernels.mlstm_chunk import ops as jml
 from repro.kernels.rmsnorm import ops as jrms
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.mlstm_chunk import ops as tml
+from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
 from repro_torch.kernels.rmsnorm import ops as trms
+from repro_torch.models.xlstm import _mlstm_parallel
 from torch_parity import DTYPES, both, f32, tol
 
 # -- rmsnorm --------------------------------------------------------------
@@ -106,6 +110,65 @@ def test_layout_round_trip():
     assert torch.equal(tfa.from_kernel_layout(qk, 2), q)
 
 
+# -- mlstm chunk ----------------------------------------------------------------
+
+#: the reference's tolerance for this kernel (``test_kernels.py``)
+MLSTM_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def _mlstm_inputs(rng, B, S, H, Dh, dtype="float32"):
+    shape = (B, S, H, Dh)
+    arrs = [rng.normal(size=shape) for _ in range(3)] + [
+        rng.normal(size=shape[:3]), rng.normal(size=shape[:3]) + 2.0]
+    return [both(a, dtype) for a in arrs]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,Dh,chunk", [
+    (2, 32, 2, 16, 8),
+    (1, 64, 4, 32, 16),
+    (2, 48, 1, 8, 48),     # single chunk == full parallel form
+    (2, 32, 4, 32, 16),    # the xlstm smoke model's mLSTM
+])
+def test_mlstm_chunk_matches_pallas(dtype, B, S, H, Dh, chunk):
+    rng = np.random.default_rng(S * H + Dh)
+    j, t = zip(*_mlstm_inputs(rng, B, S, H, Dh, dtype))
+    want = jml.mlstm_chunk(*j, chunk=chunk)
+    got = tml.mlstm_chunk(*t, chunk=chunk)
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == (B, S, H * Dh)
+    np.testing.assert_allclose(f32(got), f32(want), **MLSTM_TOL)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+def test_mlstm_chunk_does_not_depend_on_the_chunk(chunk):
+    """m is the exact running max in every chunking, so each chunk length
+    gives the parallel form's output; the CUDA kernel relies on this to
+    use its own chunk length."""
+    rng = np.random.default_rng(11)
+    B, S, H, Dh = 2, 64, 3, 16
+    _, t = zip(*_mlstm_inputs(rng, B, S, H, Dh))
+    want = _mlstm_parallel(*t).reshape(B, S, H * Dh)
+    got = tml.mlstm_chunk(*t, chunk=chunk)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4)
+
+
+def test_mlstm_chunk_layout_and_ragged_refusal():
+    rng = np.random.default_rng(12)
+    B, S, H, Dh = 2, 24, 3, 8
+    _, t = zip(*_mlstm_inputs(rng, B, S, H, Dh))
+    qk, kk, vk, ik, fk = tml.to_kernel_layout(*t)
+    assert tuple(qk.shape) == (B * H, S, Dh) and tuple(ik.shape) == (B * H, S)
+    # row b*H + h of the kernel layout is head h of batch b
+    assert torch.equal(qk[1 * H + 2], t[0][1, :, 2])
+    assert torch.equal(fk[1 * H + 2], t[4][1, :, 2])
+    y = mlstm_chunk_ref(qk, kk, vk, ik, fk, chunk=8)
+    got = tml.mlstm_chunk(*t, chunk=8)
+    assert torch.equal(got.reshape(B, S, H, Dh)[1, :, 2], y[1 * H + 2])
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        tml.mlstm_chunk(*t, chunk=16)
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.empty(4, 64, device="meta")
     with pytest.raises(ValueError, match="device"):
@@ -114,18 +177,25 @@ def test_wrappers_refuse_other_devices():
     k = torch.empty(2, 8, 16, device="meta")
     with pytest.raises(ValueError, match="device"):
         tfa.flash_attention(q, k, k)
+    g = torch.empty(2, 8, 3, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        tml.mlstm_chunk(q, q, q, g, g, chunk=8)
 
 
 def test_cpu_path_launches_nothing():
-    before = (trms.rmsnorm.launches, tfa.flash_attention.launches)
+    before = (trms.rmsnorm.launches, tfa.flash_attention.launches,
+              tml.mlstm_chunk.launches)
     trms.rmsnorm(torch.randn(3, 16), torch.ones(16))
     tfa.mha(torch.randn(1, 8, 2, 16), torch.randn(1, 8, 1, 16),
             torch.randn(1, 8, 1, 16))
-    assert (trms.rmsnorm.launches, tfa.flash_attention.launches) == before
+    x, g = torch.randn(1, 8, 2, 16), torch.randn(1, 8, 2)
+    tml.mlstm_chunk(x, x, x, g, g, chunk=8)
+    assert (trms.rmsnorm.launches, tfa.flash_attention.launches,
+            tml.mlstm_chunk.launches) == before
 
 
 def test_build_sources_and_flags():
-    assert _build.sources() == ["flash_attention", "rmsnorm"]
+    assert _build.sources() == ["flash_attention", "mlstm_chunk", "rmsnorm"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     # the library name carries a hash of its sources and flags

@@ -128,6 +128,51 @@ def test_greedy_tokens_match_jitted_reference_up_to_ties(served):
                 break
 
 
+@pytest.fixture(scope="module")
+def served_xlstm():
+    jlm = JLM(jget("xlstm-125m", smoke=True), remat="none")
+    jparams, _ = jlm.init(jax.random.PRNGKey(0))
+    lm = LM(get_config("xlstm-125m", smoke=True), use_kernels=True,
+            device="cpu")
+    params = lm.load_params(numpy_tree(jparams))
+    return jlm, jparams, lm, params
+
+
+def test_xlstm_streamed_tokens_match_offline(served_xlstm):
+    """State caches (MLSTMState, SLSTMState) through the batcher: the
+    group prefill installs every leaf into its slot, and each request
+    streams the tokens of its own offline decode."""
+    _, _, lm, params = served_xlstm
+    rep = _run(lm, params, _trace(lm.cfg, n=5, seed=2), slots=2)
+    assert len(rep.requests) == 5
+    for r in rep.requests:
+        assert r.finish == "length" and len(r.out) == r.max_new
+        assert r.out == TS.decode_offline(lm, params, r, seed=0,
+                                          s_max=S_MAX), f"rid {r.rid}"
+
+
+def test_xlstm_greedy_tokens_match_reference(served_xlstm):
+    jlm, jparams, lm, params = served_xlstm
+    trace = [(p, g + 4, 0.0) for p, g, _ in _trace(lm.cfg, n=3, seed=4)]
+    rep = _run(lm, params, trace, slots=2)
+    with jax.disable_jit():
+        for r in rep.requests:
+            jr = JS.Request(rid=r.rid, prompt_len=r.prompt_len,
+                            max_new=r.max_new,
+                            prompt=r.prompt.astype(np.int32))
+            want = JS.decode_offline(jlm, jparams, jr, seed=0, s_max=S_MAX)
+            assert r.out == want, f"rid {r.rid}: {r.out} != {want}"
+
+
+def test_xlstm_static_baseline(served_xlstm):
+    _, _, lm, params = served_xlstm
+    trace = _trace(lm.cfg, n=3, seed=5)
+    reqs = [TS.Request(rid=i, prompt_len=len(p), max_new=g, prompt=p,
+                       temperature=t) for i, (p, g, t) in enumerate(trace)]
+    rep = TS.run_static(lm, params, reqs, seed=0, s_max=S_MAX, slots=2)
+    assert rep.generated == sum(g for _, g, _ in trace)
+
+
 def test_slot_reuse_and_occupancy(served):
     _, _, lm, params = served
     trace = _trace(lm.cfg, n=7)
@@ -196,6 +241,15 @@ def test_serve_main_on_cpu():
     assert m["plan"]["source"] == "skipped" and m["device"] == "cpu"
     assert m["continuous"]["requests"] == 4
     assert m["continuous"]["tok_per_s"] > 0 and m["static"]["tok_per_s"] > 0
+
+
+def test_serve_main_xlstm_on_cpu():
+    m = serve_main(["--arch", "xlstm-125m", "--smoke", "--slots", "2",
+                    "--requests", "3", "--prompt-len-range", "3", "10",
+                    "--gen-range", "3", "6", "--device", "cpu"])
+    assert m["arch"] == "xlstm-125m" and m["device"] == "cpu"
+    assert m["continuous"]["requests"] == 3
+    assert m["continuous"]["generated"] >= 9
 
 
 def test_serve_main_needs_a_card_by_default(monkeypatch):
