@@ -3,11 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's prefill and serving paths at the full width of two
+Drives the port's prefill and serving paths at the full width of three
 models, with random weights from a seeded ``torch.Generator``:
 smollm-135m (30 layers, d 576, 9/3 heads, head_dim 64, d_ff 1536, vocab
-49152) and xlstm-125m (12 layers: 10 mLSTM, 2 sLSTM; d 768, 4 heads,
-mLSTM head dim 384, chunk 256, vocab 50304, untied head).  On the card:
+49152), xlstm-125m (12 layers: 10 mLSTM, 2 sLSTM; d 768, 4 heads,
+mLSTM head dim 384, chunk 256, vocab 50304, untied head) and
+jamba-v0.1-52b at 16 of its 32 layers (two periods of its 8-layer
+pattern: 14 Mamba and 2 GQA attention layers, 8 MoE and 8 dense FFNs;
+d 4096, 32/8 heads, head_dim 128, Mamba d_inner 8192, d_state 16, 16
+experts of d_ff 14336, top-2, vocab 65536; 26.05 B params, 52.1 GB in
+bf16).  On the card:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: compiles every kernel under ``src/repro_torch/csrc`` with nvcc
@@ -17,7 +22,15 @@ mLSTM head dim 384, chunk 256, vocab 50304, untied head).  On the card:
    times from CUDA events: RMSNorm and flash attention at 2e-2 (bf16) and
    2e-4 (f32); the mLSTM chunkwise kernel at B=4, S=1024, H=4, Dh=384,
    chunk 256 at 2e-3, the reference's tolerance for it (no single
-   PyTorch call computes it, so it has no library time);
+   PyTorch call computes it, so it has no library time); the selective
+   scan at jamba's prefill shape (B=4, S=1024, Din=8192, N=16; x bf16,
+   dt f32, and all f32) at 1e-4, the reference's tolerance (no library
+   call either); the grouped expert matmul at jamba's two prefill
+   products (C=640) and two decode products (C=8) in bf16 at 2e-2, and
+   at the first prefill product with F cut from 28672 to 3584 in f32 at
+   2e-4 (so its f32 weights take 0.94 GB, not 7.5), each with group
+   sizes that include 0 and C, against ``torch.bmm`` as the library
+   time;
 4. smollm prefill: ``LM.prefill`` with ``use_kernels=True`` at B=4,
    S=1024 against the plain path on the card (atol 0.25, rtol 0.1); the
    flash attention kernel must launch 30 times and the RMSNorm kernel 61;
@@ -30,10 +43,20 @@ mLSTM head dim 384, chunk 256, vocab 50304, untied head).  On the card:
 6. xlstm prefill: as 4, at B=4, S=1024; the mLSTM kernel must launch 10
    times and the RMSNorm kernel 13 (12 ``norm1`` and ``final_norm``);
 7. xlstm serve: as 5, over 8 requests (prompts 16-128, 16-64 new
-   tokens); the RMSNorm kernel launches at least 13 times per step.
+   tokens); the RMSNorm kernel launches at least 13 times per step;
+8. jamba prefill: as 4, at B=4, S=1024; exactly 33 RMSNorm (16 ``norm1``,
+   16 ``norm2``, ``final_norm``), 2 flash-attention, 14 selective-scan
+   and 16 grouped-matmul launches; prints the MoE dropped fraction;
+9. jamba serve: ``run_static`` (MoE configs serve on the static path)
+   with 8 slots over 8 requests (prompts 16-128, 16-64 new tokens,
+   greedy); every request completes, the grouped matmul launches at
+   least 16 times and RMSNorm 33 per decode step, and each request whose
+   prompt is its wave's longest (``run_static`` pads the others with
+   token 0) is re-decoded with ``decode_offline`` under the margin rule
+   of 5.
 
 Each path's launch counts are set to 0 just before it and read just
-after; the kernels' ``launches`` are their sums over phases 4-7.
+after; the kernels' ``launches`` are their sums over phases 4-9.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -42,6 +65,7 @@ card, or a directory that holds this file and nothing else of the repo.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -60,12 +84,19 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import ops as ml_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.launch.scheduler import (ContinuousBatcher,  # noqa: E402
-                                          decode_offline, prefill_bucket)
+                                          Request, decode_offline,
+                                          prefill_bucket, run_static)
 from repro_torch.launch.serve import make_trace  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.moe import capacity_of  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by type.
 HBM_BYTES_PER_S = 3.35e12
@@ -76,6 +107,9 @@ DTYPES = (torch.bfloat16, torch.float32)
 
 ARCH = "smollm-135m"
 XARCH = "xlstm-125m"
+JARCH = "jamba-v0.1-52b"
+#: jamba's depth here: two periods of its 8-layer pattern (of 32)
+J_LAYERS = 16
 #: where phases 3-7 run; only a rehearsal of the script changes it
 DEVICE = "cuda"
 PREFILL_B, PREFILL_S = 4, 1024
@@ -86,6 +120,12 @@ X_REQUESTS, X_PROMPT_RANGE, X_GEN_RANGE = 8, (16, 128), (16, 64)
 MARGIN = 0.05
 #: the reference's tolerance for the mLSTM kernel (tests/test_kernels.py)
 MLSTM_TOL = 2e-3
+#: ... and for the selective scan
+SSD_TOL = 1e-4
+#: jamba serving traffic (phase 9)
+J_REQUESTS, J_PROMPT_RANGE, J_GEN_RANGE = 8, (16, 128), (16, 64)
+#: the f32 grouped-matmul case cuts F by this factor (weights 0.94 GB)
+GMM_F32_F_CUT = 8
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -124,7 +164,9 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
 
 COUNTED = {"rmsnorm": rms_ops.rmsnorm,
            "flash_attention": fa_ops.flash_attention,
-           "mlstm_chunk": ml_ops.mlstm_chunk}
+           "mlstm_chunk": ml_ops.mlstm_chunk,
+           "ssd_scan": ssd_ops.ssd_scan,
+           "moe_gmm": gmm_ops.moe_gmm}
 
 
 def reset_counts() -> None:
@@ -275,6 +317,75 @@ def mlstm_case(B: int, S: int, H: int, Dh: int, chunk: int, dtype) -> dict:
     return rec
 
 
+#: H100 SXM: 132 SMs, 16 MUFU results per SM per clock, 1.98 GHz boost
+MUFU_PER_S = 132 * 16 * 1.98e9
+
+
+def ssd_case(B: int, S: int, Din: int, N: int, chunk: int, x_dtype) -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(B * S + Din + N)
+    x = torch.randn((B, S, Din), generator=gen, device=DEVICE).to(x_dtype)
+    dt = torch.rand((B, S, Din), generator=gen, device=DEVICE) * 0.19 + 0.01
+    A = -(torch.rand((Din, N), generator=gen, device=DEVICE) * 1.5 + 0.5)
+    Bm, Cm = (torch.randn((B, S, N), generator=gen, device=DEVICE)
+              .to(x_dtype) for _ in range(2))
+    tag = f"ssd_scan B={B} S={S} Din={Din} N={N} x {str(x_dtype)[6:]}"
+
+    def kernel():
+        return ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+
+    def plain():
+        return ssd_scan_ref(x, dt, A, Bm, Cm)
+    err = check_close(tag, kernel(), plain(), torch.float32, tol=SSD_TOL)
+    elt = ELT[x_dtype]
+    nbytes = (x.numel() * elt + dt.numel() * 4 + A.numel() * 4
+              + 2 * Bm.numel() * elt + 4 * x.numel())
+    ops = float(B * S * Din * (7 * N + 1))
+    b, by = bound_ms(nbytes, ops, torch.float32)
+    rec = {"max_abs_err": err, "ms": time_ms(kernel, iters=20),
+           "plain_ms": time_ms(plain, iters=3, warmup=1), "library_ms": None,
+           "library": "none: no single PyTorch call computes the selective "
+                      "scan",
+           "bound_ms": b, "bound_by": by,
+           "mufu_ms": B * S * Din * N / MUFU_PER_S * 1e3}
+    print(f"[kernels] {tag}: err {err:.3g}, kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, no library call, bound {b:.3g} ms "
+          f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP f32), "
+          f"{B * S * Din * N / 1e6:.0f} M exp need {rec['mufu_ms']:.3g} ms "
+          "of the MUFU")
+    return rec
+
+
+def gmm_case(E: int, C: int, D: int, F: int, dtype) -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(E * C + D + F)
+    x = torch.randn((E, C, D), generator=gen, device=DEVICE, dtype=dtype)
+    w = torch.randn((E, D, F), generator=gen, device=DEVICE, dtype=dtype) \
+        * D ** -0.5
+    gs = torch.randint(0, C + 1, (E,), generator=gen, device=DEVICE,
+                       dtype=torch.int32)
+    gs[0], gs[-1] = 0, C                    # an empty and a full expert
+    tag = f"moe_gmm E={E} C={C} D={D} F={F} {str(dtype)[6:]}"
+
+    def kernel():
+        return gmm_ops.moe_gmm(x, w, gs, c_block=C, f_block=F, d_block=D)
+    err = check_close(tag, kernel(), moe_gmm_ref(x, w, gs), dtype)
+    rows = int(gs.sum())
+    used = int((gs > 0).sum())
+    nbytes = (rows * D + used * D * F + E * C * F) * ELT[dtype] + 4 * E
+    ops = 2.0 * rows * D * F
+    b, by = bound_ms(nbytes, ops, dtype)
+    rec = {"max_abs_err": err, "ms": time_ms(kernel, iters=10),
+           "plain_ms": time_ms(lambda: moe_gmm_ref(x, w, gs), iters=3,
+                               warmup=1),
+           "library_ms": time_ms(lambda: torch.bmm(x, w), iters=10),
+           "library": "torch.bmm (all C rows)",
+           "bound_ms": b, "bound_by": by}
+    print(f"[kernels] {tag} ({rows} of {E * C} rows live): err {err:.3g}, "
+          f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+          f"torch.bmm {rec['library_ms']:.4f} ms, bound {b:.3g} ms ({by}; "
+          f"{nbytes / 1e9:.3f} GB, {ops / 1e12:.3f} TFLOP)")
+    return rec
+
+
 def phase_kernels() -> dict:
     cfg = get_config(ARCH)
     D, H, KVH, Dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -298,17 +409,76 @@ def phase_kernels() -> dict:
                 R, xcfg.d_model, dtype)
         out[("mlstm", dtype)] = mlstm_case(PREFILL_B, PREFILL_S, xH, xDh,
                                            xcfg.xlstm.chunk, dtype)
+    jcfg = get_config(JARCH)
+    mb, moe = jcfg.mamba, jcfg.moe
+    Din, D, E, Fe = mb.expand * jcfg.d_model, jcfg.d_model, \
+        moe.n_experts, moe.d_expert
+    for x_dtype in DTYPES:
+        out[("ssd", x_dtype)] = ssd_case(PREFILL_B, PREFILL_S, Din,
+                                         mb.d_state, mb.chunk, x_dtype)
+    cap = capacity_of(PREFILL_B * PREFILL_S, moe)
+    dcap = capacity_of(SLOTS, moe)
+    for C, tag in ((cap, "prefill"), (dcap, "decode")):
+        out[("gmm", tag, 1)] = gmm_case(E, C, D, 2 * Fe, torch.bfloat16)
+        out[("gmm", tag, 2)] = gmm_case(E, C, Fe, D, torch.bfloat16)
+    out[("gmm", "f32")] = gmm_case(E, cap, D, 2 * Fe // GMM_F32_F_CUT,
+                                   torch.float32)
+    torch.cuda.empty_cache()
     return out
 
 
 def expected_prefill_counts(cfg) -> dict:
     """Kernel launches of one prefill: a norm before every mixer, one
     before every FFN, the final norm; one flash-attention launch per
-    attention layer and one mLSTM launch per mLSTM layer."""
+    attention layer, one mLSTM launch per mLSTM layer, one selective
+    scan per Mamba layer and two grouped matmuls per MoE FFN."""
     kinds = cfg.layer_kinds()
     return {"rmsnorm": cfg.n_layers + 1 + sum(f != "none" for _, f in kinds),
             "flash_attention": sum(m == "attn" for m, _ in kinds),
-            "mlstm_chunk": sum(m == "mlstm" for m, _ in kinds)}
+            "mlstm_chunk": sum(m == "mlstm" for m, _ in kinds),
+            "ssd_scan": sum(m == "mamba" for m, _ in kinds),
+            "moe_gmm": 2 * sum(f == "moe" for _, f in kinds)}
+
+
+class Routing:
+    """Records the experts ``moe.router_topk`` chooses in one run, and
+    replays that choice in a later one: each call then returns the
+    recorded expert ids, with gates from its own router probabilities at
+    those experts.  A top-k choice is discontinuous: one bf16 step in a
+    router input can swap a near-tied expert, and with random weights an
+    expert's output dominates its token's residual, so two paths that
+    round differently part far beyond any tolerance after a few MoE
+    layers.  Pinning the choice compares what the kernels compute."""
+
+    def __init__(self):
+        self.ids: list[torch.Tensor] = []
+        self._orig = moe_mod.router_topk
+
+    def _record(self, x, w_router, moe):
+        gate, idx, aux = self._orig(x, w_router, moe)
+        self.ids.append(idx)
+        return gate, idx, aux
+
+    def _replay(self, x, w_router, moe):
+        _, _, aux = self._orig(x, w_router, moe)
+        idx = self.ids[self._next]
+        if self._row is not None:
+            idx = idx[self._row:self._row + 1]
+        self._next += 1
+        probs = torch.softmax((x.to(torch.float32) @ w_router), dim=-1)
+        gate = probs.gather(-1, idx)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        return gate, idx, aux
+
+    def run(self, fn, replay: bool, start: int = 0, row: int | None = None):
+        """``fn()`` recording, or replaying from call ``start`` on (only
+        batch row ``row`` of each recorded choice, if given)."""
+        self._next, self._row = start, row
+        moe_mod.router_topk = self._replay if replay else self._record
+        try:
+            return fn()
+        finally:
+            moe_mod.router_topk = self._orig
 
 
 def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5) -> dict:
@@ -317,11 +487,31 @@ def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5) -> dict:
     tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
                            generator=gen, device=DEVICE)
     batch = {"tokens": tokens}
+    torch.cuda.reset_peak_memory_stats()
+    routing = Routing()
     reset_counts()
-    got = lm_k.prefill(params, batch)
+    got, aux = routing.run(lambda: lm_k.prefill(params, batch,
+                                                 with_aux=True), False)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = lm_p.prefill(params, batch)
+    moe_note = ""
+    if routing.ids:
+        # the kernel path against the plain path with its own routing,
+        # reported; the check below pins the routing
+        own = Routing()
+        free = own.run(lambda: lm_p.prefill(params, batch), False)
+        moved = sum(int((a != b).any(-1).sum())
+                    for a, b in zip(routing.ids, own.ids))
+        fe = (got.float() - free.float()).abs().max().item()
+        fa = (got.float().argmax(-1) == free.float().argmax(-1)) \
+            .float().mean().item()
+        moe_note = (f"; MoE dropped fraction {aux.dropped_fraction.item():.4f}"
+                    f" (mean over MoE layers); with its own routing the "
+                    f"plain path moves {moved} of "
+                    f"{len(own.ids) * PREFILL_B * PREFILL_S} token choices "
+                    f"and parts by {fe:.4f} (argmax agreement {fa:.2f}); "
+                    "the check pins the kernel path's routing")
+    want = routing.run(lambda: lm_p.prefill(params, batch), bool(routing.ids))
     ms_k = time_ms(lambda: lm_k.prefill(params, batch), iters=iters,
                    warmup=1)
     ms_p = time_ms(lambda: lm_p.prefill(params, batch), iters=iters,
@@ -344,7 +534,8 @@ def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5) -> dict:
           f"plain max abs err {err:.4f} (max |logit| "
           f"{w.abs().max().item():.3f}, {used:.2f} of the tolerance used), "
           f"argmax agreement {agree:.2f}; launches {counts}; "
-          f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain")
+          f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB{moe_note}")
     return counts
 
 
@@ -381,21 +572,7 @@ def phase_serve(lm_k: LM, params, device: dict, n_requests: int = REQUESTS,
         raise AssertionError(f"rmsnorm launched {counts['rmsnorm']} times "
                              f"over {rep.steps} decode steps")
     for r in rep.requests[:2]:
-        rows: list[np.ndarray] = []
-        ref = decode_offline(lm_k, params, r, seed=SEED, s_max=s_max,
-                             on_logits=rows.append)
-        i = _first_divergence(r.out, ref)
-        if i is None:
-            print(f"[serve] rid {r.rid}: {len(ref)} streamed tokens equal "
-                  "decode_offline")
-            continue
-        top2 = np.sort(rows[i])[-2:]
-        margin = float(top2[1] - top2[0])
-        print(f"[serve] rid {r.rid}: first divergence at token {i} of "
-              f"{len(ref)}, offline top-2 logit margin {margin:.4f}")
-        if margin >= MARGIN:
-            raise AssertionError(f"rid {r.rid} diverges at token {i} with "
-                                 f"margin {margin} >= {MARGIN}")
+        _check_offline(lm_k, params, r, s_max)
     d = rep.to_dict()
     print(f"[serve] {cfg.name} on {device['kind']} ({device['smi']}): "
           f"{rep.generated} "
@@ -404,6 +581,96 @@ def phase_serve(lm_k: LM, params, device: dict, n_requests: int = REQUESTS,
           f"p99 {d['latency_p99_s']:.3f} s, occupancy {rep.occupancy:.3f}, "
           f"{rep.steps} decode steps at "
           f"{rep.decode_s / max(rep.steps, 1) * 1e3:.2f} ms, prefill "
+          f"{rep.prefill_s:.2f} s; launches {counts}")
+    return counts
+
+
+def _check_offline(lm_k: LM, params, r: Request, s_max: int,
+                   pinned: tuple[Routing, int, int] | None = None,
+                   check: bool = True) -> None:
+    """Re-decode ``r`` with ``decode_offline``: its tokens must equal the
+    streamed ones, or part first where the offline top-2 logit margin is
+    under ``MARGIN``.  ``pinned`` = (routing, first call, batch row)
+    replays the streamed run's expert choices; ``check=False`` reports
+    without asserting."""
+    rows: list[np.ndarray] = []
+
+    def offline():
+        return decode_offline(lm_k, params, r, seed=SEED, s_max=s_max,
+                              on_logits=rows.append)
+    ref = offline() if pinned is None else pinned[0].run(
+        offline, True, start=pinned[1], row=pinned[2])
+    tag = f"rid {r.rid}" + (" (routing pinned)" if pinned else "")
+    i = _first_divergence(r.out, ref)
+    if i is None:
+        print(f"[serve] {tag}: {len(ref)} streamed tokens equal "
+              "decode_offline")
+        return
+    top2 = np.sort(rows[i])[-2:]
+    margin = float(top2[1] - top2[0])
+    print(f"[serve] {tag}: first divergence at token {i} of "
+          f"{len(ref)}, offline top-2 logit margin {margin:.4f}")
+    if check and margin >= MARGIN:
+        raise AssertionError(f"rid {r.rid} diverges at token {i} with "
+                             f"margin {margin} >= {MARGIN}")
+
+
+def phase_serve_static(lm_k: LM, params, device: dict) -> dict:
+    """MoE configs serve on the static path (the batcher refuses them):
+    waves of ``SLOTS`` requests, each prompt padded to its wave's
+    longest with token 0."""
+    cfg = lm_k.cfg
+    s_max = prefill_bucket(J_PROMPT_RANGE[1], 16) + J_GEN_RANGE[1]
+    trace = make_trace(cfg, J_REQUESTS, seed=SEED,
+                       prompt_len_range=J_PROMPT_RANGE,
+                       gen_range=J_GEN_RANGE)
+    reqs = [Request(rid=i, prompt_len=t["prompt_len"], max_new=t["max_new"],
+                    prompt=t["prompt"], temperature=t["temperature"],
+                    t_submit=time.perf_counter())
+            for i, t in enumerate(trace)]
+    waves = [reqs[i:i + SLOTS] for i in range(0, len(reqs), SLOTS)]
+    # decode_step calls: each wave steps through its longest prompt, then
+    # its largest max_new less the token the prompt's last step gives
+    calls = sum(max(r.prompt_len for r in w) + max(r.max_new for r in w) - 1
+                for w in waves)
+    torch.cuda.synchronize()
+    routing = Routing()
+    reset_counts()
+    rep = routing.run(lambda: run_static(lm_k, params, reqs, seed=SEED,
+                                         s_max=s_max, slots=SLOTS), False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if len(rep.requests) != J_REQUESTS:
+        raise AssertionError(f"{len(rep.requests)} of {J_REQUESTS} served")
+    for r in rep.requests:
+        if len(r.out) != r.max_new:
+            raise AssertionError(f"rid {r.rid}: {len(r.out)} of {r.max_new} "
+                                 "tokens")
+    per_step = expected_prefill_counts(cfg)
+    for name in ("rmsnorm", "moe_gmm"):
+        if counts[name] < per_step[name] * calls:
+            raise AssertionError(f"{name} launched {counts[name]} times "
+                                 f"over {calls} decode steps")
+    # the longest prompts decode offline twice: with their own routing
+    # (reported: batch 1 and batch 8 round differently, which can swap a
+    # near-tied expert, see Routing) and with the streamed run's (checked)
+    n_moe = sum(f == "moe" for _, f in cfg.layer_kinds())
+    start = 0
+    for w in waves:
+        l_max = max(r.prompt_len for r in w)
+        for row, r in enumerate(w):
+            if r.prompt_len == l_max:
+                _check_offline(lm_k, params, r, s_max, check=False)
+                _check_offline(lm_k, params, r, s_max,
+                               pinned=(routing, start, row))
+        start += n_moe * (l_max + max(q.max_new for q in w) - 1)
+    d = rep.to_dict()
+    print(f"[serve] {cfg.name} static on {device['kind']} ({device['smi']}):"
+          f" {rep.generated} tokens / {len(rep.requests)} requests in "
+          f"{rep.wall_s:.2f} s, {d['tok_per_s']:.1f} tok/s, p50 "
+          f"{d['latency_p50_s']:.3f} s, p99 {d['latency_p99_s']:.3f} s, "
+          f"{calls} decode steps ({rep.steps} after the prompts) at "
+          f"{(rep.prefill_s + rep.decode_s) / calls * 1e3:.2f} ms, prompts "
           f"{rep.prefill_s:.2f} s; launches {counts}")
     return counts
 
@@ -421,6 +688,11 @@ def main() -> int:
     paths += [phase_prefill(xlm_k, xlm_p, xparams, iters=3),
               phase_serve(xlm_k, xparams, device, X_REQUESTS,
                           X_PROMPT_RANGE, X_GEN_RANGE)]
+    del xlm_k, xlm_p, xparams
+    torch.cuda.empty_cache()
+    jcfg, jlm_k, jlm_p, jparams = build_model(JARCH, n_layers=J_LAYERS)
+    paths += [phase_prefill(jlm_k, jlm_p, jparams, iters=2),
+              phase_serve_static(jlm_k, jparams, device)]
 
     main_path = {k: sum(p[k] for p in paths) for k in COUNTED}
     xH = xcfg.n_heads
@@ -448,6 +720,28 @@ def main() -> int:
              shape=(f"B={PREFILL_B} S={PREFILL_S} H={xH} Dh={xDh} chunk "
                     f"{xcfg.xlstm.chunk} bf16 in, f32 out (xlstm prefill)"),
              **cases[("mlstm", torch.bfloat16)]),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:54",
+             launches=main_path["ssd_scan"],
+             shape=(f"B={PREFILL_B} S={PREFILL_S} Din="
+                    f"{jcfg.mamba.expand * jcfg.d_model} N="
+                    f"{jcfg.mamba.d_state}, x bf16, dt f32, y f32 (jamba "
+                    "prefill)"),
+             **cases[("ssd", torch.bfloat16)]),
+        dict(name="moe_gmm", route="cuda",
+             source="src/repro_torch/csrc/moe_gmm.cu",
+             replaces="src/repro/kernels/moe_gmm/kernel.py:49",
+             launches=main_path["moe_gmm"],
+             shape=(f"({jcfg.moe.n_experts}, "
+                    f"{capacity_of(PREFILL_B * PREFILL_S, jcfg.moe)}, "
+                    f"{jcfg.d_model}) x ({jcfg.moe.n_experts}, "
+                    f"{jcfg.d_model}, {2 * jcfg.moe.d_expert}) bf16 (jamba "
+                    "prefill, first product)"),
+             decode={k: cases[("gmm", "decode", 1)][k]
+                     for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")},
+             **cases[("gmm", "prefill", 1)]),
     ]
     for k in kernels:
         if k["launches"] <= 0:
@@ -460,14 +754,17 @@ def main() -> int:
     return 0
 
 
-def build_model(arch: str):
+def build_model(arch: str, n_layers: int | None = None):
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     lm_k = LM(cfg, use_kernels=True, device=DEVICE)
     lm_p = LM(cfg, use_kernels=False, device=DEVICE)
     params, _ = lm_k.init(SEED)
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"[model] {arch}: {n_params / 1e6:.1f}M params, "
-          f"{cfg.n_layers} layers, d {cfg.d_model}")
+          f"{cfg.n_layers} layers, d {cfg.d_model}; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
     return cfg, lm_k, lm_p, params
 
 

@@ -351,8 +351,9 @@ def decode_offline(lm, params, req: Request, *, seed: int, s_max: int,
     A different code path from the batcher: scalar cache positions
     (contiguous writes instead of per-slot scatter), no padding, no
     gating, batch 1 throughout.  ``on_logits`` receives the f32 logits row
-    each generated token was drawn from."""
-    _check_batchable(lm.cfg)
+    each generated token was drawn from.  Like the reference's, it runs
+    every config, MoE included: at batch 1 an expert's capacity (at least
+    8 slots, capped at the one token) drops nothing."""
     dev = lm.device
     caches = lm.init_caches(1, s_max)
 

@@ -7,20 +7,28 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
         --smoke --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-v0.1-52b --smoke --device cpu
+
 Counterpart of ``repro.launch.serve`` without the sharding plan: on one
 card ``constrain`` is a no-op, and fetching and applying a plan wait for
 ROADMAP A8/A14, so the driver prints ``plan: skipped``.  The model runs
 with ``use_kernels=True``: the RMSNorm kernel at every norm site of
-every decode step.  Prompts are prefilled as decode steps, so attention
-reads the KV cache and the mLSTM runs its step form there; the
-flash-attention and mLSTM chunkwise kernels serve ``LM.prefill``.
+every decode step, and the grouped-matmul kernel in every MoE FFN.
+Prompts are prefilled as decode steps, so attention reads the KV cache
+and the mLSTM and Mamba run their step forms there; the flash-attention,
+mLSTM chunkwise and selective-scan kernels serve ``LM.prefill``.
 ``--device cpu`` runs the same path on the CPU with the kernels' plain
 versions.
 
 The request trace comes from its own numpy stream; the parameters from a
 ``torch.Generator`` seeded with ``--seed``; sampling draws are keyed per
-(request, position) inside the scheduler.  MoE configs are served on the
-static path (the batcher refuses them), once MoE is ported.
+(request, position) inside the scheduler.  MoE configs (jamba) are served
+on the static path only, as in the reference: expert capacity couples the
+rows of a batch, so the batcher refuses them.  The full jamba-v0.1-52b
+(32 layers, 103 GB of bf16 weights) does not fit on one 80 GB card;
+this entry point, like the reference's, has no depth option, and
+``chip_smoke.py`` runs it at 16 layers.
 """
 from __future__ import annotations
 
@@ -107,7 +115,10 @@ def main(argv=None) -> dict:
     is_moe = any(ffn == "moe" for _, ffn in cfg.layer_kinds())
     metrics: dict = {"arch": args.arch, "device": str(lm.device),
                      "plan": {"source": "skipped"}}
-    if not is_moe:
+    if is_moe:
+        print(f"[serve] {args.arch} has MoE layers: static path only "
+              "(expert capacity couples batch rows)")
+    else:
         def run_once():
             b = ContinuousBatcher(lm, params, slots=args.slots,
                                   s_max=s_max, seed=args.seed,

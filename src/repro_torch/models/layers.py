@@ -20,6 +20,8 @@ import torch.nn.functional as F
 
 BF16 = torch.bfloat16
 F32 = torch.float32
+#: the most f32 values ``ParamBuilder`` draws at once (256 MiB)
+_DRAW_CHUNK = 1 << 26
 
 
 # --------------------------------------------------------------------------
@@ -50,9 +52,19 @@ class ParamBuilder:
         full_dims = (("layers",) + tuple(dims)) if stack else tuple(dims)
         if self.device.type == "meta":
             leaf = torch.empty(full, dtype=dtype, device=self.device)
-        else:
+        elif np.prod(full) <= _DRAW_CHUNK:
             leaf = (torch.randn(full, generator=self.generator, dtype=F32,
                                 device=self.device) * std).to(dtype)
+        else:
+            # drawn in f32 pieces, so a leaf of billions of elements (an
+            # expert stack) needs no f32 copy of itself
+            leaf = torch.empty(full, dtype=dtype, device=self.device)
+            flat = leaf.view(-1)
+            for i in range(0, flat.numel(), _DRAW_CHUNK):
+                n = min(_DRAW_CHUNK, flat.numel() - i)
+                flat[i:i + n] = torch.randn(
+                    n, generator=self.generator, dtype=F32,
+                    device=self.device) * std
         _set(self.params, path, leaf)
         _set(self.dims, path, full_dims)
 

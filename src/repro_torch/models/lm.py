@@ -1,5 +1,5 @@
-"""Decoder LM assembly: the dense and xLSTM families with the tokens
-frontend.
+"""Decoder LM assembly: the dense, xLSTM and hybrid Mamba + MoE (jamba)
+families with the tokens frontend.
 
 Counterpart of ``repro.models.lm``.  Parameters keep the reference's
 paths and layout (``group0/b0/mix/w_q`` of shape ``(layers, D, H, Dh)``
@@ -11,19 +11,21 @@ Entry points:
 * ``logits_fn(params, batch)`` — full-sequence logits (teacher forcing).
 * ``prefill(params, batch)`` — full-sequence forward; returns the
   last-position logits (as the reference does; it returns no caches).
-* ``decode_step(params, batch, caches)`` — one-token step with KV or
-  xLSTM state caches, scalar or per-slot positions, optional ``active``
-  gating.
+* ``decode_step(params, batch, caches)`` — one-token step with KV, SSM
+  or xLSTM state caches, scalar or per-slot positions, optional
+  ``active`` gating.
 * ``init_caches(B, S_max, vector_pos=)`` — zero caches in the reference's
   pytree layout.
 
 With ``use_kernels=True`` the full-sequence attention runs the flash
-attention kernel, the full-sequence mLSTM the chunkwise kernel, and every
-RMS norm the RMSNorm kernel.  The reference routes only attention and the
-mLSTM through its kernels; its RMSNorm kernel
-computes exactly ``rms_norm`` and is wired in here so that the serving
-loop, whose attention is the plain ``_sdpa`` over the cache, runs a kernel
-of its own.
+attention kernel, the full-sequence mLSTM the chunkwise kernel, the
+full-sequence Mamba scan the selective-scan kernel, both expert products
+of every MoE FFN (prefill and decode) the grouped-matmul kernel, and
+every RMS norm the RMSNorm kernel.  The reference routes only attention,
+the mLSTM and the Mamba scan through its kernels; its RMSNorm and
+grouped-matmul kernels compute exactly ``rms_norm`` and the expert
+einsums, and are wired in here so that the serving loop, whose attention
+is the plain ``_sdpa`` over the cache, runs kernels of its own.
 
 Families outside this slice raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that ports them.
@@ -41,6 +43,8 @@ from ..configs.base import ArchConfig
 from .attention import KVCache, gqa_attention, init_gqa
 from .layers import (BF16, F32, ParamBuilder, apply_norm, init_mlp,
                      init_norm, mlp)
+from .moe import MoEAux, init_moe, moe_ffn
+from .ssm import SSMState, init_mamba, mamba_block
 from .xlstm import (MLSTMState, SLSTMState, init_mlstm, init_slstm,
                     mlstm_block, slstm_block)
 
@@ -51,32 +55,35 @@ def _noop_constrain(x, dims, site=None):
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what is not ported yet: the
-    dense and xLSTM families with the tokens frontend are."""
+    dense, xLSTM and Mamba + MoE families with the tokens frontend are."""
     todo = []
-    if cfg.moe is not None:
-        todo.append("MoE FFN (ROADMAP A9)")
     if cfg.mla is not None:
         todo.append("MLA attention (ROADMAP A9)")
-    if cfg.mamba is not None:
-        todo.append("Mamba blocks (ROADMAP A10)")
     if cfg.frontend != "tokens" or cfg.cross_attn_every:
         todo.append(f"the {cfg.frontend} frontend and cross-attention "
                     "(ROADMAP A4)")
     if todo:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet (the port runs the dense and "
-            "xLSTM families): " + "; ".join(todo))
+            f"{cfg.name}: not ported yet (the port runs the dense, xLSTM "
+            "and Mamba + MoE families): " + "; ".join(todo))
+
+
+def _like(tup: tuple, items) -> tuple:
+    """A tuple of ``tup``'s type (plain or NamedTuple) holding ``items``."""
+    items = list(items)
+    return type(tup)(*items) if hasattr(tup, "_fields") else tuple(items)
 
 
 def _map_cache(fn, *caches):
-    """Apply ``fn`` leaf-wise over cache or param pytrees: dicts and
-    NamedTuples of tensors, ``None`` leaves kept."""
+    """Apply ``fn`` leaf-wise over cache or param pytrees: dicts, tuples
+    and NamedTuples of tensors (a Mamba cache is the plain tuple
+    ``(SSMState(h), conv_carry)``), ``None`` leaves kept."""
     first = caches[0]
     if isinstance(first, dict):
         return {key: _map_cache(fn, *(c[key] for c in caches))
                 for key in first}
     if isinstance(first, tuple):
-        return type(first)(*(None if f is None else _map_cache(fn, f, *rest)
+        return _like(first, (None if f is None else _map_cache(fn, f, *rest)
                              for f, *rest in zip(*caches)))
     return fn(*caches)
 
@@ -92,7 +99,7 @@ def _stack_layers(old, given, new):
         return {key: _stack_layers(old[key], [g[key] for g in given],
                                    [n[key] for n in new]) for key in old}
     if isinstance(old, tuple):
-        return type(old)(*(_stack_layers(o, [g[j] for g in given],
+        return _like(old, (_stack_layers(o, [g[j] for g in given],
                                          [n[j] for n in new])
                            for j, o in enumerate(old)))
     if all(n is g for n, g in zip(new, given)):
@@ -137,6 +144,8 @@ class LM:
                     init_mlstm(pb, f"{pfx}/mix", cfg, stack=stack)
                 elif mix == "slstm":
                     init_slstm(pb, f"{pfx}/mix", cfg, stack=stack)
+                elif mix == "mamba":
+                    init_mamba(pb, f"{pfx}/mix", cfg, stack=stack)
                 else:
                     raise NotImplementedError(f"mixer {mix!r}")
                 if ffn != "none":
@@ -145,6 +154,8 @@ class LM:
                 if ffn == "dense":
                     init_mlp(pb, f"{pfx}/ffn", cfg.d_model,
                              cfg.dense_d_ff or cfg.d_ff, stack=stack)
+                elif ffn == "moe":
+                    init_moe(pb, f"{pfx}/ffn", cfg, stack=stack)
         init_norm(pb, "final_norm", cfg.norm, cfg.d_model)
         if not cfg.tie_embeddings:
             pb.weight("head", (cfg.d_model, cfg.vocab), ("d_model", "vocab"),
@@ -170,10 +181,13 @@ class LM:
     # -- one block ----------------------------------------------------------------
     def _block(self, resid, bp, mix, ffn, positions, cache=None,
                active=None):
+        """One layer; returns (resid, aux, new_cache) with ``aux`` the
+        ``MoEAux`` of an MoE FFN, else ``None``."""
         cfg = self.cfg
         c = self.constrain
         x = apply_norm(cfg.norm, resid, bp["norm1"], self.use_kernels)
         new_cache = None
+        aux = None
         if mix == "attn":
             out, new_cache = gqa_attention(
                 x, bp["mix"], cfg, positions, c, cache=cache,
@@ -192,6 +206,15 @@ class LM:
                                              state=cache)
             else:
                 out = slstm_block(x, bp["mix"], cfg, c)
+        elif mix == "mamba":
+            if cache is not None:
+                state, carry = cache
+                out, state, carry = mamba_block(
+                    x, bp["mix"], cfg, c, state=state, conv_carry=carry)
+                new_cache = (state, carry)
+            else:
+                out = mamba_block(x, bp["mix"], cfg, c,
+                                  use_kernels=self.use_kernels)
         else:
             raise NotImplementedError(f"mixer {mix!r}")
         resid = resid + out
@@ -199,30 +222,42 @@ class LM:
         if ffn == "dense":
             x2 = apply_norm(cfg.norm, resid, bp["norm2"], self.use_kernels)
             resid = resid + mlp(x2, bp["ffn"], c)
+        elif ffn == "moe":
+            x2 = apply_norm(cfg.norm, resid, bp["norm2"], self.use_kernels)
+            moe_out, aux = moe_ffn(x2, bp["ffn"], cfg, c,
+                                   use_kernels=self.use_kernels)
+            resid = resid + moe_out
         resid = c(resid, ("batch", "seq", "d_model"), "residual2")
-        return resid, new_cache
+        return resid, aux, new_cache
 
     def _super_block(self, resid, gparams, pattern, positions,
                      caches=None, active=None):
+        """Returns (resid, the MoEAux of each MoE layer, new_caches)."""
+        auxes = []
         new_caches = {} if caches is not None else None
         for j, (mix, ffn) in enumerate(pattern):
             cache = caches.get(f"b{j}") if caches is not None else None
-            resid, nc = self._block(resid, gparams[f"b{j}"], mix, ffn,
-                                    positions, cache, active)
+            resid, aux, nc = self._block(resid, gparams[f"b{j}"], mix, ffn,
+                                         positions, cache, active)
+            if aux is not None:
+                auxes.append(aux)
             if caches is not None:
                 new_caches[f"b{j}"] = nc
-        return resid, new_caches
+        return resid, auxes, new_caches
 
     # -- forward -------------------------------------------------------------------
     def _backbone(self, params, resid, positions, caches=None, active=None):
-        """Runs all layer groups; returns (resid, new_caches)."""
+        """Runs all layer groups; returns (resid, the MoEAux of each MoE
+        layer in order, new_caches)."""
+        auxes = []
         new_caches = {} if caches is not None else None
         for gi, (pattern, repeats) in enumerate(self._groups()):
             gparams = params[f"group{gi}"]
             gcaches = caches.get(f"group{gi}") if caches is not None else None
             if repeats == 1:
-                resid, nc = self._super_block(resid, gparams, pattern,
-                                              positions, gcaches, active)
+                resid, ax, nc = self._super_block(resid, gparams, pattern,
+                                                  positions, gcaches, active)
+                auxes += ax
                 if caches is not None:
                     new_caches[f"group{gi}"] = nc
                 continue
@@ -232,14 +267,15 @@ class LM:
                 lp = _map_cache(lambda t, i=i: t[i], gparams)
                 lc = (_map_cache(lambda t, i=i: t[i], gcaches)
                       if caches is not None else None)
-                resid, nc = self._super_block(resid, lp, pattern, positions,
-                                              lc, active)
+                resid, ax, nc = self._super_block(resid, lp, pattern,
+                                                  positions, lc, active)
+                auxes += ax
                 given.append(lc)
                 per_layer.append(nc)
             if caches is not None:
                 new_caches[f"group{gi}"] = _stack_layers(gcaches, given,
                                                          per_layer)
-        return resid, new_caches
+        return resid, auxes, new_caches
 
     def _embed(self, params, batch):
         resid = params["embed"][batch["tokens"]].to(BF16)
@@ -262,16 +298,28 @@ class LM:
         """Full-sequence logits (teacher forcing)."""
         B, S = batch["tokens"].shape
         resid = self._embed(params, batch)
-        resid, _ = self._backbone(params, resid, self._positions(B, S))
+        resid, _, _ = self._backbone(params, resid, self._positions(B, S))
         return self._head(params, resid)
 
-    def prefill(self, params, batch) -> torch.Tensor:
+    def prefill(self, params, batch, with_aux: bool = False):
         """Full-sequence forward returning the last-position logits
-        ``(B, 1, vocab)``."""
+        ``(B, 1, vocab)``; with ``with_aux``, ``(logits, aux)`` where
+        ``aux`` sums the MoE layers' load-balance and z losses (the
+        reference's backbone totals) and averages their dropped
+        fractions (``None`` without MoE layers)."""
         B, S = batch["tokens"].shape
         resid = self._embed(params, batch)
-        resid, _ = self._backbone(params, resid, self._positions(B, S))
-        return self._head(params, resid[:, -1:])
+        resid, auxes, _ = self._backbone(params, resid,
+                                         self._positions(B, S))
+        logits = self._head(params, resid[:, -1:])
+        if not with_aux:
+            return logits
+        aux = None
+        if auxes:
+            aux = MoEAux(sum(a.load_balance_loss for a in auxes),
+                         sum(a.router_z_loss for a in auxes),
+                         sum(a.dropped_fraction for a in auxes) / len(auxes))
+        return logits, aux
 
     def decode_step(self, params, batch, caches) -> tuple[torch.Tensor, dict]:
         """One-token step: ``batch`` holds the current token ``(B,1)`` and
@@ -288,8 +336,8 @@ class LM:
         positions = pos[:, None] if pos.ndim else pos.expand(B, 1)
         active = batch.get("active")
         resid = self._embed(params, batch)
-        resid, new_caches = self._backbone(params, resid, positions,
-                                           caches=caches, active=active)
+        resid, _, new_caches = self._backbone(params, resid, positions,
+                                              caches=caches, active=active)
         if active is not None:
             new_caches = self._gate_caches(active, caches, new_caches)
         logits = self._head(params, resid)
@@ -322,9 +370,11 @@ class LM:
         """Zero caches ``{"group0": {"b0": cache}}``, each leaf with a
         leading ``layers`` axis inside a stacked group: ``KVCache(k, v,
         pos)`` with ``k``/``v`` of shape ``(B, S_max, KVH, Dh)`` for
-        attention, ``MLSTMState(C, n, m)`` and ``SLSTMState(c, n, h, m)``
-        in f32 for the xLSTM mixers (``m`` starts at 0, as the
-        reference's caches do).
+        attention, ``(SSMState(h), conv_carry)`` with ``h`` ``(B, Din, N)``
+        f32 and the carry ``(B, d_conv-1, Din)`` bf16 for Mamba, and
+        ``MLSTMState(C, n, m)`` and ``SLSTMState(c, n, h, m)`` in f32 for
+        the xLSTM mixers (``m`` starts at 0, as the reference's caches
+        do).
 
         ``vector_pos=True`` makes every position a per-slot ``(B,)``
         vector, as the continuous-batching server needs."""
@@ -355,4 +405,9 @@ class LM:
         if mix == "slstm":
             D = cfg.d_model
             return SLSTMState(*(z((B, D), F32) for _ in range(4)))
+        if mix == "mamba":
+            mb = cfg.mamba
+            Din = mb.expand * cfg.d_model
+            return (SSMState(z((B, Din, mb.d_state), F32)),
+                    z((B, mb.d_conv - 1, Din)))
         raise NotImplementedError(f"mixer {mix!r}")

@@ -5,6 +5,8 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -13,8 +15,12 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.mlstm_chunk import ops as tml
+from repro_torch.kernels.moe_gmm import ops as tgmm
+from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 from repro_torch.kernels.rmsnorm import ops as trms
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd_scan import ops as tssd
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models.lm import LM
 from torch_parity import DTYPES, cuda, f32, tol, torch_dtype  # noqa: F401
 
@@ -169,5 +175,147 @@ def test_xlstm_prefill_runs_the_kernels(cuda):
     n_m = sum(m == "mlstm" for m, _ in cfg.layer_kinds())
     assert tml.mlstm_chunk.launches - ml0 == n_m
     assert trms.rmsnorm.launches - rms0 == cfg.n_layers + 1
+    want = lm_p.prefill(params, {"tokens": toks})
+    np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)
+
+
+#: the reference's tolerance for the selective scan (``test_kernels.py``)
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _ssd_inputs(gen, B, S, Din, N, x_dtype, dev):
+    x = torch.randn(B, S, Din, generator=gen, device=dev).to(x_dtype)
+    dt = torch.rand(B, S, Din, generator=gen, device=dev) * 0.19 + 0.01
+    A = -(torch.rand(Din, N, generator=gen, device=dev) * 1.5 + 0.5)
+    Bm = torch.randn(B, S, N, generator=gen, device=dev)
+    Cm = torch.randn(B, S, N, generator=gen, device=dev)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,S,Din,N,chunk", [
+    (4, 1024, 8192, 16, 256),  # jamba prefill
+    (2, 64, 16, 4, 16),        # the reference's kernel test shapes
+    (1, 128, 32, 8, 32),
+    (2, 96, 24, 16, 48),
+    (3, 77, 200, 8, 77),       # ragged: Din not a multiple of a block
+])
+def test_ssd_scan_kernel(cuda, x_dtype, B, S, Din, N, chunk):
+    gen = torch.Generator(device=cuda).manual_seed(S + Din)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, Din, N, torch_dtype(x_dtype),
+                                   cuda)
+    before = tssd.ssd_scan.launches
+    got = tssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, d_block=Din)
+    torch.cuda.synchronize()
+    assert tssd.ssd_scan.launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, Din)
+    np.testing.assert_allclose(f32(got), f32(ssd_scan_ref(x, dt, A, Bm, Cm)),
+                               **SSD_TOL)
+
+
+def test_ssd_scan_kernel_reads_strided_views(cuda):
+    """x and dt as views of wider tensors and B, C as bf16 views of one
+    projection, as ``mamba_block`` hands them over."""
+    B, S, Din, N = 2, 64, 96, 16
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xz = torch.randn(B, S, 2 * Din, generator=gen, device=cuda).bfloat16()
+    dt2 = torch.rand(B, S, 2 * Din, generator=gen, device=cuda) * 0.2
+    A = -(torch.rand(Din, N, generator=gen, device=cuda) + 0.5)
+    proj = torch.randn(B, S, 8 + 2 * N, generator=gen, device=cuda).bfloat16()
+    x, dt = xz[..., :Din], dt2[..., Din:]
+    Bm, Cm = proj[..., 8:8 + N], proj[..., 8 + N:]
+    got = tssd.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    want = ssd_scan_ref(x, dt, A, Bm, Cm)
+    np.testing.assert_allclose(f32(got), f32(want), **SSD_TOL)
+    # a view the kernel cannot stream 16 bytes at a time is copied
+    x1 = xz[..., 1:Din + 1]
+    got = tssd.ssd_scan(x1, dt, A, Bm, Cm, chunk=16)
+    np.testing.assert_allclose(f32(got), f32(ssd_scan_ref(x1, dt, A, Bm,
+                                                          Cm)), **SSD_TOL)
+
+
+def test_ssd_scan_kernel_refuses(cuda):
+    x = torch.ones(1, 16, 8, device=cuda)
+    A = -torch.ones(8, 4, device=cuda)
+    Bm = torch.ones(1, 16, 4, device=cuda)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tssd.ssd_scan(x.half(), x, A, Bm, Bm)
+    with pytest.raises(NotImplementedError, match="N in"):
+        tssd.ssd_scan(x, x, -torch.ones(8, 5, device=cuda),
+                      torch.ones(1, 16, 5, device=cuda),
+                      torch.ones(1, 16, 5, device=cuda))
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        tssd.ssd_scan(x[:, :12], x[:, :12], A, Bm[:, :12], Bm[:, :12],
+                      chunk=8)
+    with pytest.raises(NotImplementedError, match="Din % 8"):
+        tssd.ssd_scan(x[..., :6], x[..., :6], A[:6], Bm, Bm)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,C,D,F", [
+    (16, 8, 4096, 28672),      # jamba decode, first product
+    (16, 1, 14336, 4096),      # one row: decode_offline, second product
+    (4, 16, 128, 64),          # the most rows the 16-row tile takes
+    (4, 17, 128, 64),          # the fewest the 128-row tile takes
+    (16, 640, 14336, 4096),    # jamba prefill, second product
+    (4, 32, 64, 128),          # the reference's kernel test shapes
+    (8, 64, 32, 64),
+    (3, 100, 40, 24),          # ragged: no dimension a tile multiple
+])
+def test_moe_gmm_kernel(cuda, dtype, E, C, D, F):
+    gen = torch.Generator(device=cuda).manual_seed(C + D)
+    td = torch_dtype(dtype)
+    x = torch.randn(E, C, D, generator=gen, device=cuda).to(td)
+    w = (torch.randn(E, D, F, generator=gen, device=cuda) * 0.1).to(td)
+    gs = torch.randint(0, C + 1, (E,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    gs[0], gs[-1] = 0, C                    # an empty and a full expert
+    before = tgmm.moe_gmm.launches
+    got = tgmm.moe_gmm(x, w, gs, c_block=C, f_block=F, d_block=D)
+    torch.cuda.synchronize()
+    assert tgmm.moe_gmm.launches == before + 1
+    assert got.dtype == td and tuple(got.shape) == (E, C, F)
+    want = moe_gmm_ref(x, w, gs)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+    assert not f32(got[0]).any()
+
+
+def test_moe_gmm_kernel_copies_strided_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(4, 64, 32, generator=gen, device=cuda).bfloat16()
+    w = torch.randn(4, 32, 64, generator=gen, device=cuda).bfloat16()
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)   # same values
+    wv = w[:, :, :32]                                     # a strided view
+    gs = torch.tensor([64, 0, 17, 40], device=cuda, dtype=torch.int32)
+    got = tgmm.moe_gmm(xt, wv, gs, c_block=64, f_block=32, d_block=32)
+    np.testing.assert_allclose(f32(got), f32(moe_gmm_ref(x, wv, gs)),
+                               **tol("bfloat16"))
+
+
+def test_moe_gmm_kernel_refuses(cuda):
+    x = torch.ones(2, 8, 16, device=cuda)
+    w = torch.ones(2, 16, 8, device=cuda)
+    gs = torch.full((2,), 8, device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError, match="one dtype"):
+        tgmm.moe_gmm(x, w.bfloat16(), gs)
+    with pytest.raises(TypeError, match="one dtype"):
+        tgmm.moe_gmm(x.half(), w.half(), gs)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tgmm.moe_gmm(x[..., :12], w[:, :12], gs)
+
+
+def test_jamba_prefill_runs_the_kernels(cuda):
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b", smoke=True),
+                              n_layers=16)
+    lm_k = LM(cfg, use_kernels=True, device=cuda)
+    lm_p = LM(cfg, use_kernels=False, device=cuda)
+    params, _ = lm_k.init(0)
+    toks = torch.randint(0, cfg.vocab, (2, 48), device=cuda)
+    counts = (trms.rmsnorm, tfa.flash_attention, tssd.ssd_scan,
+              tgmm.moe_gmm)
+    before = [f.launches for f in counts]
+    got = lm_k.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counts, before)] == [33, 2, 14, 16]
     want = lm_p.prefill(params, {"tokens": toks})
     np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)

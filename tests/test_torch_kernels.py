@@ -18,7 +18,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.mlstm_chunk import ops as tml
 from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+from repro_torch.kernels.moe_gmm import ops as tgmm
 from repro_torch.kernels.rmsnorm import ops as trms
+from repro_torch.kernels.ssd_scan import ops as tssd
 from repro_torch.models.xlstm import _mlstm_parallel
 from torch_parity import DTYPES, both, f32, tol
 
@@ -183,19 +185,24 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_cpu_path_launches_nothing():
-    before = (trms.rmsnorm.launches, tfa.flash_attention.launches,
-              tml.mlstm_chunk.launches)
+    counted = (trms.rmsnorm, tfa.flash_attention, tml.mlstm_chunk,
+               tssd.ssd_scan, tgmm.moe_gmm)
+    before = [f.launches for f in counted]
     trms.rmsnorm(torch.randn(3, 16), torch.ones(16))
     tfa.mha(torch.randn(1, 8, 2, 16), torch.randn(1, 8, 1, 16),
             torch.randn(1, 8, 1, 16))
     x, g = torch.randn(1, 8, 2, 16), torch.randn(1, 8, 2)
     tml.mlstm_chunk(x, x, x, g, g, chunk=8)
-    assert (trms.rmsnorm.launches, tfa.flash_attention.launches,
-            tml.mlstm_chunk.launches) == before
+    xs, bc = torch.randn(1, 8, 16), torch.randn(1, 8, 4)
+    tssd.ssd_scan(xs, xs.abs(), -torch.ones(16, 4), bc, bc, chunk=8)
+    tgmm.moe_gmm(torch.randn(2, 8, 16), torch.randn(2, 16, 8),
+                 torch.tensor([8, 3]))
+    assert [f.launches for f in counted] == before
 
 
 def test_build_sources_and_flags():
-    assert _build.sources() == ["flash_attention", "mlstm_chunk", "rmsnorm"]
+    assert _build.sources() == ["flash_attention", "mlstm_chunk", "moe_gmm",
+                                "rmsnorm", "ssd_scan"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     # the library name carries a hash of its sources and flags

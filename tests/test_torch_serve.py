@@ -282,3 +282,64 @@ print("ok", len(names))
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.startswith("ok")
+
+
+@pytest.fixture(scope="module")
+def served_jamba():
+    jlm = JLM(jget("jamba-v0.1-52b", smoke=True), remat="none")
+    jparams, _ = jlm.init(jax.random.PRNGKey(0))
+    lm = LM(get_config("jamba-v0.1-52b", smoke=True), use_kernels=True,
+            device="cpu")
+    params = lm.load_params(numpy_tree(jparams))
+    return jlm, jparams, lm, params
+
+
+def _greedy_requests(mod, trace):
+    return [mod.Request(rid=i, prompt_len=len(p), max_new=g,
+                        prompt=p.astype(np.int32))
+            for i, (p, g, _) in enumerate(trace)]
+
+
+def test_jamba_static_greedy_tokens_match_reference(served_jamba):
+    """MoE configs serve on the static path: one wave of three requests
+    through ``run_static``, greedy, equals the reference's ``run_static``
+    run op by op, token for token."""
+    jlm, jparams, lm, params = served_jamba
+    trace = _trace(lm.cfg, n=3, seed=6)
+    rep = TS.run_static(lm, params, _greedy_requests(TS, trace), seed=0,
+                        s_max=S_MAX, slots=3)
+    with jax.disable_jit():
+        jrep = JS.run_static(jlm, jparams, _greedy_requests(JS, trace),
+                             seed=0, s_max=S_MAX, slots=3)
+    assert rep.generated == sum(g for _, g, _ in trace)
+    for r, jr in zip(rep.requests, jrep.requests):
+        assert r.out == jr.out, f"rid {r.rid}: {r.out} != {jr.out}"
+
+
+def test_decode_offline_runs_moe_configs(served_jamba):
+    """The port's ``decode_offline`` runs a MoE config, as the
+    reference's does (it used to refuse them).  At batch 1 no token is
+    dropped, and the request whose prompt is its wave's longest (so
+    ``run_static`` pads it with nothing) streams the same tokens."""
+    jlm, jparams, lm, params = served_jamba
+    trace = _trace(lm.cfg, n=3, seed=6)
+    rep = TS.run_static(lm, params, _greedy_requests(TS, trace), seed=0,
+                        s_max=S_MAX, slots=3)
+    longest = max(rep.requests, key=lambda r: r.prompt_len)
+    got = TS.decode_offline(lm, params, longest, seed=0, s_max=S_MAX)
+    assert len(got) == longest.max_new
+    assert got == longest.out
+    with jax.disable_jit():
+        want = JS.decode_offline(jlm, jparams, JS.Request(
+            rid=longest.rid, prompt_len=longest.prompt_len,
+            max_new=longest.max_new, prompt=longest.prompt), seed=0,
+            s_max=S_MAX)
+    assert got == want
+
+
+def test_serve_main_jamba_on_cpu():
+    m = serve_main(["--arch", "jamba-v0.1-52b", "--smoke", "--slots", "2",
+                    "--requests", "3", "--prompt-len-range", "3", "10",
+                    "--gen-range", "3", "6", "--device", "cpu"])
+    assert m["arch"] == "jamba-v0.1-52b" and "continuous" not in m
+    assert m["static"]["requests"] == 3 and m["static"]["generated"] >= 9
