@@ -25,12 +25,7 @@ bf16).  On the card:
    PyTorch call computes it, so it has no library time); the selective
    scan at jamba's prefill shape (B=4, S=1024, Din=8192, N=16; x bf16,
    dt f32, and all f32) at 1e-4, the reference's tolerance (no library
-   call either); the grouped expert matmul at jamba's two prefill
-   products (C=640) and two decode products (C=8) in bf16 at 2e-2, and
-   at the first prefill product with F cut from 28672 to 3584 in f32 at
-   2e-4 (so its f32 weights take 0.94 GB, not 7.5), each with group
-   sizes that include 0 and C, against ``torch.bmm`` as the library
-   time;
+   call either); the grouped expert matmul comes after phase 9 (10);
 4. smollm prefill: ``LM.prefill`` with ``use_kernels=True`` at B=4,
    S=1024 against the plain path on the card (atol 0.25, rtol 0.1); the
    flash attention kernel must launch 30 times and the RMSNorm kernel 61;
@@ -53,7 +48,14 @@ bf16).  On the card:
    least 16 times and RMSNorm 33 per decode step, and each request whose
    prompt is its wave's longest (``run_static`` pads the others with
    token 0) is re-decoded with ``decode_offline`` under the margin rule
-   of 5.
+   of 5;
+10. grouped matmul: once jamba is freed, as 3 at the group sizes that
+   jamba's first MoE layer had in phase 8 and its last decode step in
+   phase 9: the two prefill products (C=640) and the two decode products
+   (C=8) in bf16 at 2e-2, and the first prefill product with F cut from
+   28672 to 3584 in f32 at 2e-4 (so its f32 weights take 0.94 GB, not
+   7.5), against ``torch.bmm`` as the library time; each is also checked
+   with one expert's group set to 0 rows and one to C.
 
 Each path's launch counts are set to 0 just before it and read just
 after; the kernels' ``launches`` are their sums over phases 4-9.
@@ -345,28 +347,40 @@ def ssd_case(B: int, S: int, Din: int, N: int, chunk: int, x_dtype) -> dict:
            "plain_ms": time_ms(plain, iters=3, warmup=1), "library_ms": None,
            "library": "none: no single PyTorch call computes the selective "
                       "scan",
-           "bound_ms": b, "bound_by": by,
-           "mufu_ms": B * S * Din * N / MUFU_PER_S * 1e3}
+           "bound_ms": b, "bound_by": by}
+    # printed only: exp can also run on the FMA units, so this is no bound
+    mufu_ms = B * S * Din * N / MUFU_PER_S * 1e3
     print(f"[kernels] {tag}: err {err:.3g}, kernel {rec['ms']:.4f} ms, plain "
           f"{rec['plain_ms']:.4f} ms, no library call, bound {b:.3g} ms "
           f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP f32), "
-          f"{B * S * Din * N / 1e6:.0f} M exp need {rec['mufu_ms']:.3g} ms "
+          f"{B * S * Din * N / 1e6:.0f} M exp need {mufu_ms:.3g} ms "
           "of the MUFU")
     return rec
 
 
-def gmm_case(E: int, C: int, D: int, F: int, dtype) -> dict:
+def group_sizes(ids: torch.Tensor, E: int, C: int) -> torch.Tensor:
+    """An MoE layer's grouped-matmul ``group_sizes`` from its router's
+    expert ids (T, K): each expert's copies, capped at its capacity."""
+    return torch.bincount(ids.reshape(-1), minlength=E).clamp(max=C) \
+        .to(torch.int32)
+
+
+def gmm_case(gs: torch.Tensor, C: int, D: int, F: int, dtype) -> dict:
+    """The grouped matmul at the group sizes ``gs`` that the main path
+    gave it; checked there and with one expert empty and one full."""
+    E = gs.shape[0]
     gen = torch.Generator(device=DEVICE).manual_seed(E * C + D + F)
     x = torch.randn((E, C, D), generator=gen, device=DEVICE, dtype=dtype)
     w = torch.randn((E, D, F), generator=gen, device=DEVICE, dtype=dtype) \
         * D ** -0.5
-    gs = torch.randint(0, C + 1, (E,), generator=gen, device=DEVICE,
-                       dtype=torch.int32)
-    gs[0], gs[-1] = 0, C                    # an empty and a full expert
     tag = f"moe_gmm E={E} C={C} D={D} F={F} {str(dtype)[6:]}"
 
-    def kernel():
+    def kernel(gs=gs):
         return gmm_ops.moe_gmm(x, w, gs, c_block=C, f_block=F, d_block=D)
+    edge = gs.clone()
+    edge[0], edge[-1] = 0, C
+    check_close(f"{tag} group sizes {edge.tolist()}", kernel(edge),
+                moe_gmm_ref(x, w, edge), dtype)
     err = check_close(tag, kernel(), moe_gmm_ref(x, w, gs), dtype)
     rows = int(gs.sum())
     used = int((gs > 0).sum())
@@ -379,7 +393,8 @@ def gmm_case(E: int, C: int, D: int, F: int, dtype) -> dict:
            "library_ms": time_ms(lambda: torch.bmm(x, w), iters=10),
            "library": "torch.bmm (all C rows)",
            "bound_ms": b, "bound_by": by}
-    print(f"[kernels] {tag} ({rows} of {E * C} rows live): err {err:.3g}, "
+    print(f"[kernels] {tag} at group sizes {gs.tolist()} ({rows} of "
+          f"{E * C} rows live): err {err:.3g}, "
           f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
           f"torch.bmm {rec['library_ms']:.4f} ms, bound {b:.3g} ms ({by}; "
           f"{nbytes / 1e9:.3f} GB, {ops / 1e12:.3f} TFLOP)")
@@ -416,13 +431,31 @@ def phase_kernels() -> dict:
     for x_dtype in DTYPES:
         out[("ssd", x_dtype)] = ssd_case(PREFILL_B, PREFILL_S, Din,
                                          mb.d_state, mb.chunk, x_dtype)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gmm_kernels(prefill_ids: list, decode_ids: list) -> dict:
+    """The grouped matmul at the group sizes of jamba's first MoE layer in
+    the prefill (phase 8) and of its last decode step in serving (phase
+    9: all ``SLOTS`` rows active, ``top_k`` copies each).  Run after the
+    model is freed, since the plain version widens the weights to f32."""
+    cfg = get_config(JARCH)
+    moe = cfg.moe
+    D, E, Fe = cfg.d_model, moe.n_experts, moe.d_expert
     cap = capacity_of(PREFILL_B * PREFILL_S, moe)
     dcap = capacity_of(SLOTS, moe)
-    for C, tag in ((cap, "prefill"), (dcap, "decode")):
-        out[("gmm", tag, 1)] = gmm_case(E, C, D, 2 * Fe, torch.bfloat16)
-        out[("gmm", tag, 2)] = gmm_case(E, C, Fe, D, torch.bfloat16)
-    out[("gmm", "f32")] = gmm_case(E, cap, D, 2 * Fe // GMM_F32_F_CUT,
-                                   torch.float32)
+    live = [int(group_sizes(ids, E, cap).sum()) for ids in prefill_ids]
+    print(f"[kernels] jamba prefill: live grouped-matmul rows by MoE layer "
+          f"{live} of {E * cap}")
+    out = {}
+    for ids, C, tag in ((prefill_ids[0], cap, "prefill"),
+                        (decode_ids[-1], dcap, "decode")):
+        gs = group_sizes(ids, E, C)
+        out[("gmm", tag, 1)] = gmm_case(gs, C, D, 2 * Fe, torch.bfloat16)
+        out[("gmm", tag, 2)] = gmm_case(gs, C, Fe, D, torch.bfloat16)
+    out[("gmm", "f32")] = gmm_case(group_sizes(prefill_ids[0], E, cap), cap,
+                                   D, 2 * Fe // GMM_F32_F_CUT, torch.float32)
     torch.cuda.empty_cache()
     return out
 
@@ -481,7 +514,10 @@ class Routing:
             moe_mod.router_topk = self._orig
 
 
-def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5) -> dict:
+def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5
+                  ) -> tuple[dict, list]:
+    """Launch counts of one prefill, and the expert ids each MoE layer's
+    router chose in it."""
     cfg = lm_k.cfg
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
@@ -536,7 +572,7 @@ def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5) -> dict:
           f"argmax agreement {agree:.2f}; launches {counts}; "
           f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB{moe_note}")
-    return counts
+    return counts, routing.ids
 
 
 def _first_divergence(streamed: list[int], offline: list[int]) -> int | None:
@@ -615,10 +651,12 @@ def _check_offline(lm_k: LM, params, r: Request, s_max: int,
                              f"margin {margin} >= {MARGIN}")
 
 
-def phase_serve_static(lm_k: LM, params, device: dict) -> dict:
+def phase_serve_static(lm_k: LM, params, device: dict
+                       ) -> tuple[dict, list]:
     """MoE configs serve on the static path (the batcher refuses them):
     waves of ``SLOTS`` requests, each prompt padded to its wave's
-    longest with token 0."""
+    longest with token 0.  Returns the launch counts and the expert ids
+    of every router call."""
     cfg = lm_k.cfg
     s_max = prefill_bucket(J_PROMPT_RANGE[1], 16) + J_GEN_RANGE[1]
     trace = make_trace(cfg, J_REQUESTS, seed=SEED,
@@ -672,7 +710,7 @@ def phase_serve_static(lm_k: LM, params, device: dict) -> dict:
           f"{calls} decode steps ({rep.steps} after the prompts) at "
           f"{(rep.prefill_s + rep.decode_s) / calls * 1e3:.2f} ms, prompts "
           f"{rep.prefill_s:.2f} s; launches {counts}")
-    return counts
+    return counts, routing.ids
 
 
 def main() -> int:
@@ -681,18 +719,22 @@ def main() -> int:
     cases = phase_kernels()
 
     cfg, lm_k, lm_p, params = build_model(ARCH)
-    paths = [phase_prefill(lm_k, lm_p, params),
+    paths = [phase_prefill(lm_k, lm_p, params)[0],
              phase_serve(lm_k, params, device)]
     del lm_k, lm_p, params
     xcfg, xlm_k, xlm_p, xparams = build_model(XARCH)
-    paths += [phase_prefill(xlm_k, xlm_p, xparams, iters=3),
+    paths += [phase_prefill(xlm_k, xlm_p, xparams, iters=3)[0],
               phase_serve(xlm_k, xparams, device, X_REQUESTS,
                           X_PROMPT_RANGE, X_GEN_RANGE)]
     del xlm_k, xlm_p, xparams
     torch.cuda.empty_cache()
     jcfg, jlm_k, jlm_p, jparams = build_model(JARCH, n_layers=J_LAYERS)
-    paths += [phase_prefill(jlm_k, jlm_p, jparams, iters=2),
-              phase_serve_static(jlm_k, jparams, device)]
+    j_prefill, prefill_ids = phase_prefill(jlm_k, jlm_p, jparams, iters=2)
+    j_serve, decode_ids = phase_serve_static(jlm_k, jparams, device)
+    paths += [j_prefill, j_serve]
+    del jlm_k, jlm_p, jparams
+    torch.cuda.empty_cache()
+    cases.update(phase_gmm_kernels(prefill_ids, decode_ids))
 
     main_path = {k: sum(p[k] for p in paths) for k in COUNTED}
     xH = xcfg.n_heads
@@ -737,7 +779,8 @@ def main() -> int:
                     f"{capacity_of(PREFILL_B * PREFILL_S, jcfg.moe)}, "
                     f"{jcfg.d_model}) x ({jcfg.moe.n_experts}, "
                     f"{jcfg.d_model}, {2 * jcfg.moe.d_expert}) bf16 (jamba "
-                    "prefill, first product)"),
+                    "prefill, first product, at the first MoE layer's "
+                    "group sizes)"),
              decode={k: cases[("gmm", "decode", 1)][k]
                      for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                "bound_by")},
