@@ -20,9 +20,11 @@ bf16).  On the card:
 3. kernels: each kernel against its plain PyTorch version at the shapes
    the main paths give it, bf16 and f32, with kernel, plain and library
    times from CUDA events: RMSNorm and flash attention at 2e-2 (bf16) and
-   2e-4 (f32); the mLSTM chunkwise kernel at B=4, S=1024, H=4, Dh=384,
-   chunk 256 at 2e-3, the reference's tolerance for it (no single
-   PyTorch call computes it, so it has no library time); the selective
+   2e-4 (f32), flash attention at smollm's shapes and at jamba's prefill
+   shape (B=4, S=1024, 32/8 heads, Dh 128, causal); the mLSTM chunkwise
+   kernel at B=4, S=1024, H=4, Dh=384, chunk 256 at 2e-3, the
+   reference's tolerance for it (no single PyTorch call computes it, so
+   it has no library time); the selective
    scan at jamba's prefill shape (B=4, S=1024, Din=8192, N=16; x bf16,
    dt f32, and all f32) at 1e-4, the reference's tolerance (no library
    call either); the grouped expert matmul comes after phase 9 (10);
@@ -425,11 +427,15 @@ def phase_kernels() -> dict:
         out[("mlstm", dtype)] = mlstm_case(PREFILL_B, PREFILL_S, xH, xDh,
                                            xcfg.xlstm.chunk, dtype)
     jcfg = get_config(JARCH)
-    mb, moe = jcfg.mamba, jcfg.moe
-    Din, D, E, Fe = mb.expand * jcfg.d_model, jcfg.d_model, \
-        moe.n_experts, moe.d_expert
+    for dtype in DTYPES:
+        out[("mha", PREFILL_S, jcfg.n_heads, jcfg.n_kv_heads, None,
+             dtype)] = mha_case(PREFILL_B, PREFILL_S, jcfg.n_heads,
+                                jcfg.n_kv_heads, jcfg.resolved_head_dim,
+                                None, dtype)
+    mb = jcfg.mamba
     for x_dtype in DTYPES:
-        out[("ssd", x_dtype)] = ssd_case(PREFILL_B, PREFILL_S, Din,
+        out[("ssd", x_dtype)] = ssd_case(PREFILL_B, PREFILL_S,
+                                         mb.expand * jcfg.d_model,
                                          mb.d_state, mb.chunk, x_dtype)
     torch.cuda.empty_cache()
     return out
@@ -753,6 +759,12 @@ def main() -> int:
              shape=(f"B={PREFILL_B} S={PREFILL_S} H={cfg.n_heads}/"
                     f"{cfg.n_kv_heads} Dh={cfg.resolved_head_dim} causal "
                     "bf16 (prefill)"),
+             jamba=dict(shape=(f"B={PREFILL_B} S={PREFILL_S} H="
+                               f"{jcfg.n_heads}/{jcfg.n_kv_heads} Dh="
+                               f"{jcfg.resolved_head_dim} causal bf16 "
+                               "(jamba prefill)"),
+                        **cases[("mha", PREFILL_S, jcfg.n_heads,
+                                 jcfg.n_kv_heads, None, torch.bfloat16)]),
              **cases[("mha", PREFILL_S, cfg.n_heads, cfg.n_kv_heads, None,
                       torch.bfloat16)]),
         dict(name="mlstm_chunk", route="cuda",
@@ -781,9 +793,12 @@ def main() -> int:
                     f"{jcfg.d_model}, {2 * jcfg.moe.d_expert}) bf16 (jamba "
                     "prefill, first product, at the first MoE layer's "
                     "group sizes)"),
+             second={k: cases[("gmm", "prefill", 2)][k]
+                     for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                               "bound_ms", "bound_by")},
              decode={k: cases[("gmm", "decode", 1)][k]
-                     for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                               "bound_by")},
+                     for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                               "bound_ms", "bound_by")},
              **cases[("gmm", "prefill", 1)]),
     ]
     for k in kernels:

@@ -58,6 +58,7 @@ def test_rmsnorm_kernel_refuses(cuda):
     (2, 128, 256, 4, 4, 32, False, None),
     (1, 300, 300, 8, 2, 128, True, None),
     (1, 77, 77, 3, 1, 16, True, 16),
+    (4, 1024, 1024, 32, 8, 128, True, None),   # jamba prefill
 ])
 def test_flash_attention_kernel(cuda, dtype, B, Sq, Skv, H, KVH, Dh, causal,
                                 window):
@@ -74,6 +75,29 @@ def test_flash_attention_kernel(cuda, dtype, B, Sq, Skv, H, KVH, Dh, causal,
     want = tfa.from_kernel_layout(
         attention_ref(qk, kk, vk, causal=causal, window=window), B)
     np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("B,S,H,KVH,Dh,window", [
+    (4, 1024, 9, 3, 64, None),      # smollm prefill
+    (1, 300, 8, 2, 128, None),
+    (1, 200, 4, 2, 32, 48),
+])
+def test_flash_attention_kernel_peaked_softmax(cuda, B, S, H, KVH, Dh,
+                                               window):
+    """q and k scaled by 8: scores of a few hundred, so each row's
+    softmax puts nearly all its weight on a few keys.  The bf16 kernel
+    rounds P to bf16 before P·V, where the plain version keeps it in f32;
+    held at the unchanged bf16 tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(S + Dh)
+    q = (torch.randn(B, S, H, Dh, generator=gen, device=cuda) * 8).bfloat16()
+    k = (torch.randn(B, S, KVH, Dh, generator=gen, device=cuda) * 8) \
+        .bfloat16()
+    v = torch.randn(B, S, KVH, Dh, generator=gen, device=cuda).bfloat16()
+    qk, kk, vk = tfa.to_kernel_layout(q, k, v)
+    got = tfa.mha(q, k, v, causal=True, window=window)
+    want = tfa.from_kernel_layout(
+        attention_ref(qk, kk, vk, causal=True, window=window), B)
+    np.testing.assert_allclose(f32(got), f32(want), **tol("bfloat16"))
 
 
 def test_flash_attention_kernel_refuses(cuda):
@@ -278,6 +302,29 @@ def test_moe_gmm_kernel(cuda, dtype, E, C, D, F):
     want = moe_gmm_ref(x, w, gs)
     np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
     assert not f32(got[0]).any()
+
+
+@pytest.mark.parametrize("rows", ["full", "jamba"])
+def test_moe_gmm_kernel_prefill_group_sizes(cuda, rows):
+    """jamba's first prefill product with every expert full, and with
+    512 ± 128 rows each as its router gives at B=4, S=1024."""
+    E, C, D, F = 16, 640, 4096, 28672
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(E, C, D, generator=gen, device=cuda).bfloat16()
+    w = (torch.randn(E, D, F, generator=gen, device=cuda) * D ** -0.5) \
+        .bfloat16()
+    if rows == "full":
+        gs = torch.full((E,), C, device=cuda, dtype=torch.int32)
+    else:
+        gs = torch.randint(384, 641, (E,), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    before = tgmm.moe_gmm.launches
+    got = tgmm.moe_gmm(x, w, gs, c_block=C, f_block=F, d_block=D)
+    torch.cuda.synchronize()
+    assert tgmm.moe_gmm.launches == before + 1
+    want = moe_gmm_ref(x, w, gs)
+    # on the card: 293 M outputs (assert_close's test is assert_allclose's)
+    torch.testing.assert_close(got.float(), want.float(), **tol("bfloat16"))
 
 
 def test_moe_gmm_kernel_copies_strided_inputs(cuda):
