@@ -12,7 +12,10 @@ jamba-v0.1-52b at 16 of its 32 layers (two periods of its 8-layer
 pattern: 14 Mamba and 2 GQA attention layers, 8 MoE and 8 dense FFNs;
 d 4096, 32/8 heads, head_dim 128, Mamba d_inner 8192, d_state 16, 16
 experts of d_ff 14336, top-2, vocab 65536; 26.05 B params, 52.1 GB in
-bf16).  On the card:
+bf16); and the prefill of two more at full width and 2 layers, for
+their head dims: stablelm-3b (d 2560, 32/32 heads, head_dim 80,
+LayerNorm, rotary on 25%) and h2o-danube-3-4b (d 3840, 32/8 heads,
+head_dim 120, window 4096).  On the card:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: compiles every kernel under ``src/repro_torch/csrc`` with nvcc
@@ -20,14 +23,19 @@ bf16).  On the card:
 3. kernels: each kernel against its plain PyTorch version at the shapes
    the main paths give it, bf16 and f32, with kernel, plain and library
    times from CUDA events: RMSNorm and flash attention at 2e-2 (bf16) and
-   2e-4 (f32), flash attention at smollm's shapes and at jamba's prefill
-   shape (B=4, S=1024, 32/8 heads, Dh 128, causal); the mLSTM chunkwise
+   2e-4 (f32), RMSNorm at smollm's, xlstm's and jamba's widths with 8
+   and 4,096 rows, each also timed as device time per launch from a CUDA
+   graph's replays (``device_ms``); flash attention at smollm's shapes,
+   at jamba's prefill shape (B=4, S=1024, 32/8 heads, Dh 128, causal),
+   and in bf16 at stablelm-3b's (32/32 heads, Dh 80) and
+   h2o-danube-3-4b's (32/8 heads, Dh 120, with window 96 and without);
+   the mLSTM chunkwise
    kernel at B=4, S=1024, H=4, Dh=384, chunk 256 at 2e-3, the
    reference's tolerance for it (no single PyTorch call computes it, so
    it has no library time); the selective
    scan at jamba's prefill shape (B=4, S=1024, Din=8192, N=16; x bf16,
    dt f32, and all f32) at 1e-4, the reference's tolerance (no library
-   call either); the grouped expert matmul comes after phase 9 (10);
+   call either); the grouped expert matmul comes after phase 10 (11);
 4. smollm prefill: ``LM.prefill`` with ``use_kernels=True`` at B=4,
    S=1024 against the plain path on the card (atol 0.25, rtol 0.1); the
    flash attention kernel must launch 30 times and the RMSNorm kernel 61;
@@ -41,26 +49,29 @@ bf16).  On the card:
    times and the RMSNorm kernel 13 (12 ``norm1`` and ``final_norm``);
 7. xlstm serve: as 5, over 8 requests (prompts 16-128, 16-64 new
    tokens); the RMSNorm kernel launches at least 13 times per step;
-8. jamba prefill: as 4, at B=4, S=1024; exactly 33 RMSNorm (16 ``norm1``,
+8. stablelm-3b and h2o-danube-3-4b prefill: as 4, at 2 layers each;
+   exactly 2 flash-attention launches each, and 5 RMSNorm for
+   h2o-danube (stablelm's norms are LayerNorms: none);
+9. jamba prefill: as 4, at B=4, S=1024; exactly 33 RMSNorm (16 ``norm1``,
    16 ``norm2``, ``final_norm``), 2 flash-attention, 14 selective-scan
    and 16 grouped-matmul launches; prints the MoE dropped fraction;
-9. jamba serve: ``run_static`` (MoE configs serve on the static path)
+10. jamba serve: ``run_static`` (MoE configs serve on the static path)
    with 8 slots over 8 requests (prompts 16-128, 16-64 new tokens,
    greedy); every request completes, the grouped matmul launches at
    least 16 times and RMSNorm 33 per decode step, and each request whose
    prompt is its wave's longest (``run_static`` pads the others with
    token 0) is re-decoded with ``decode_offline`` under the margin rule
    of 5;
-10. grouped matmul: once jamba is freed, as 3 at the group sizes that
-   jamba's first MoE layer had in phase 8 and its last decode step in
-   phase 9: the two prefill products (C=640) and the two decode products
+11. grouped matmul: once jamba is freed, as 3 at the group sizes that
+   jamba's first MoE layer had in phase 9 and its last decode step in
+   phase 10: the two prefill products (C=640) and the two decode products
    (C=8) in bf16 at 2e-2, and the first prefill product with F cut from
    28672 to 3584 in f32 at 2e-4 (so its f32 weights take 0.94 GB, not
    7.5), against ``torch.bmm`` as the library time; each is also checked
    with one expert's group set to 0 rows and one to C.
 
 Each path's launch counts are set to 0 just before it and read just
-after; the kernels' ``launches`` are their sums over phases 4-9.
+after; the kernels' ``launches`` are their sums over phases 4-10.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -114,7 +125,14 @@ XARCH = "xlstm-125m"
 JARCH = "jamba-v0.1-52b"
 #: jamba's depth here: two periods of its 8-layer pattern (of 32)
 J_LAYERS = 16
-#: where phases 3-7 run; only a rehearsal of the script changes it
+#: the dense models whose head dims (80, 120) have kernel widths of
+#: their own or are zero-filled to one; prefilled at 2 layers
+HEAD_DIM_ARCHS = ("stablelm-3b", "h2o-danube-3-4b")
+HD_LAYERS = 2
+#: the sliding window of the h2o-danube kernel case (its own is 4096,
+#: which S=1024 never reaches)
+HD_WINDOW = 96
+#: where phases 3-8 run; only a rehearsal of the script changes it
 DEVICE = "cuda"
 PREFILL_B, PREFILL_S = 4, 1024
 SLOTS, REQUESTS, SEED = 8, 16, 0
@@ -126,7 +144,7 @@ MARGIN = 0.05
 MLSTM_TOL = 2e-3
 #: ... and for the selective scan
 SSD_TOL = 1e-4
-#: jamba serving traffic (phase 9)
+#: jamba serving traffic (phase 10)
 J_REQUESTS, J_PROMPT_RANGE, J_GEN_RANGE = 8, (16, 128), (16, 64)
 #: the f32 grouped-matmul case cuts F by this factor (weights 0.94 GB)
 GMM_F32_F_CUT = 8
@@ -146,6 +164,33 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 100, replays: int = 20) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, its replays timed with CUDA events (the host's launch path is
+    out of the timing)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
@@ -218,15 +263,28 @@ def rmsnorm_case(R: int, D: int, dtype) -> dict:
     s_lib = s.to(dtype)
     b, by = bound_ms(2 * R * D * ELT[dtype] + 4 * D, 4 * R * D,
                      torch.float32)
+    before = rms_ops.rmsnorm.launches
+    rms_ops.rmsnorm(x, s)
+    if rms_ops.rmsnorm.launches != before + 1:
+        raise AssertionError("rmsnorm: not one launch per call")
+
+    def library():
+        return F.rms_norm(x, (D,), s_lib, eps=1e-6)
+    # ms: back-to-back calls, which at few rows is the host's launch path;
+    # device_ms: the same calls replayed from a CUDA graph
     rec = {"max_abs_err": err,
-           "ms": time_ms(lambda: rms_ops.rmsnorm(x, s)),
+           "ms": time_ms(lambda: rms_ops.rmsnorm(x, s), iters=1000,
+                         warmup=100),
+           "device_ms": graph_ms(lambda: rms_ops.rmsnorm(x, s)),
            "plain_ms": time_ms(lambda: rmsnorm_ref(x, s)),
-           "library_ms": time_ms(
-               lambda: F.rms_norm(x, (D,), s_lib, eps=1e-6)),
+           "library_ms": time_ms(library, iters=1000, warmup=100),
+           "library_device_ms": graph_ms(library),
            "bound_ms": b, "bound_by": by}
     print(f"[kernels] rmsnorm R={R} D={D} {str(dtype)[6:]}: err {err:.3g}, "
-          f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-          f"F.rms_norm {rec['library_ms']:.4f} ms, bound {b:.3g} ms ({by})")
+          f"kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.5f}), "
+          f"plain {rec['plain_ms']:.4f} ms, F.rms_norm "
+          f"{rec['library_ms']:.4f} ms (device "
+          f"{rec['library_device_ms']:.5f}), bound {b:.3g} ms ({by})")
     return rec
 
 
@@ -417,6 +475,12 @@ def phase_kernels() -> dict:
                                     (1000, H, KVH, None)):
             out[("mha", S, h, kvh, window, dtype)] = mha_case(
                 PREFILL_B, S, h, kvh, Dh, window, dtype)
+    for arch in HEAD_DIM_ARCHS:
+        hcfg = get_config(arch)
+        for window in ((None, HD_WINDOW) if hcfg.attn_window else (None,)):
+            out[("mha", arch, window)] = mha_case(
+                PREFILL_B, PREFILL_S, hcfg.n_heads, hcfg.n_kv_heads,
+                hcfg.resolved_head_dim, window, torch.bfloat16)
     xcfg = get_config(XARCH)
     xH = xcfg.n_heads
     xDh = xcfg.xlstm.proj_factor_mlstm * xcfg.d_model // xH
@@ -432,6 +496,9 @@ def phase_kernels() -> dict:
              dtype)] = mha_case(PREFILL_B, PREFILL_S, jcfg.n_heads,
                                 jcfg.n_kv_heads, jcfg.resolved_head_dim,
                                 None, dtype)
+        for R in (SLOTS, PREFILL_B * PREFILL_S):
+            out[("rmsnorm", R, jcfg.d_model, dtype)] = rmsnorm_case(
+                R, jcfg.d_model, dtype)
     mb = jcfg.mamba
     for x_dtype in DTYPES:
         out[("ssd", x_dtype)] = ssd_case(PREFILL_B, PREFILL_S,
@@ -443,8 +510,8 @@ def phase_kernels() -> dict:
 
 def phase_gmm_kernels(prefill_ids: list, decode_ids: list) -> dict:
     """The grouped matmul at the group sizes of jamba's first MoE layer in
-    the prefill (phase 8) and of its last decode step in serving (phase
-    9: all ``SLOTS`` rows active, ``top_k`` copies each).  Run after the
+    the prefill (phase 9) and of its last decode step in serving (phase
+    10: all ``SLOTS`` rows active, ``top_k`` copies each).  Run after the
     model is freed, since the plain version widens the weights to f32."""
     cfg = get_config(JARCH)
     moe = cfg.moe
@@ -472,7 +539,8 @@ def expected_prefill_counts(cfg) -> dict:
     attention layer, one mLSTM launch per mLSTM layer, one selective
     scan per Mamba layer and two grouped matmuls per MoE FFN."""
     kinds = cfg.layer_kinds()
-    return {"rmsnorm": cfg.n_layers + 1 + sum(f != "none" for _, f in kinds),
+    norms = cfg.n_layers + 1 + sum(f != "none" for _, f in kinds)
+    return {"rmsnorm": norms if cfg.norm == "rms" else 0,
             "flash_attention": sum(m == "attn" for m, _ in kinds),
             "mlstm_chunk": sum(m == "mlstm" for m, _ in kinds),
             "ssd_scan": sum(m == "mamba" for m, _ in kinds),
@@ -734,6 +802,11 @@ def main() -> int:
                           X_PROMPT_RANGE, X_GEN_RANGE)]
     del xlm_k, xlm_p, xparams
     torch.cuda.empty_cache()
+    for arch in HEAD_DIM_ARCHS:
+        _, hlm_k, hlm_p, hparams = build_model(arch, n_layers=HD_LAYERS)
+        paths.append(phase_prefill(hlm_k, hlm_p, hparams, iters=3)[0])
+        del hlm_k, hlm_p, hparams
+        torch.cuda.empty_cache()
     jcfg, jlm_k, jlm_p, jparams = build_model(JARCH, n_layers=J_LAYERS)
     j_prefill, prefill_ids = phase_prefill(jlm_k, jlm_p, jparams, iters=2)
     j_serve, decode_ids = phase_serve_static(jlm_k, jparams, device)
@@ -743,6 +816,21 @@ def main() -> int:
     cases.update(phase_gmm_kernels(prefill_ids, decode_ids))
 
     main_path = {k: sum(p[k] for p in paths) for k in COUNTED}
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+
+    def sub(key, shape, extra=()):
+        return dict(shape=shape, **{k: cases[key][k] for k in keys + extra})
+    hd = {}
+    for arch in HEAD_DIM_ARCHS:
+        hcfg = get_config(arch)
+        for window in ((None, HD_WINDOW) if hcfg.attn_window else (None,)):
+            hd[arch + ("" if window is None else f" window {window}")] = sub(
+                ("mha", arch, window),
+                f"B={PREFILL_B} S={PREFILL_S} H={hcfg.n_heads}/"
+                f"{hcfg.n_kv_heads} Dh={hcfg.resolved_head_dim} causal"
+                + ("" if window is None else f" window {window}")
+                + f" bf16 ({arch} prefill)")
     xH = xcfg.n_heads
     xDh = xcfg.xlstm.proj_factor_mlstm * xcfg.d_model // xH
     kernels = [
@@ -751,6 +839,15 @@ def main() -> int:
              replaces="src/repro/kernels/rmsnorm/kernel.py:26",
              launches=main_path["rmsnorm"],
              shape=f"x ({SLOTS}, {cfg.d_model}) bf16 (decode step)",
+             jamba_decode=sub(("rmsnorm", SLOTS, jcfg.d_model,
+                               torch.bfloat16),
+                              f"x ({SLOTS}, {jcfg.d_model}) bf16 (jamba "
+                              "decode step)", ("device_ms",)),
+             jamba_prefill=sub(("rmsnorm", PREFILL_B * PREFILL_S,
+                                jcfg.d_model, torch.bfloat16),
+                               f"x ({PREFILL_B * PREFILL_S}, "
+                               f"{jcfg.d_model}) bf16 (jamba prefill)",
+                               ("device_ms",)),
              **cases[("rmsnorm", SLOTS, torch.bfloat16)]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -765,6 +862,7 @@ def main() -> int:
                                "(jamba prefill)"),
                         **cases[("mha", PREFILL_S, jcfg.n_heads,
                                  jcfg.n_kv_heads, None, torch.bfloat16)]),
+             head_dims=hd,
              **cases[("mha", PREFILL_S, cfg.n_heads, cfg.n_kv_heads, None,
                       torch.bfloat16)]),
         dict(name="mlstm_chunk", route="cuda",
@@ -773,6 +871,7 @@ def main() -> int:
              launches=main_path["mlstm_chunk"],
              shape=(f"B={PREFILL_B} S={PREFILL_S} H={xH} Dh={xDh} chunk "
                     f"{xcfg.xlstm.chunk} bf16 in, f32 out (xlstm prefill)"),
+             f32=sub(("mlstm", torch.float32), "the same, f32 in"),
              **cases[("mlstm", torch.bfloat16)]),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",

@@ -8,6 +8,16 @@
 //   q (BH, G, Sq, Dh), k (BH, Skv, Dh), v (BH, Skv, Dv) -> o (BH, G, Sq, Dv)
 // with BH = batch * kv_heads and G the query heads per kv head.
 //
+// Head dims: any Dh == Dv up to 128 whose rows are whole 16-byte chunks
+// (the wrapper pads any other to the next such width in a copy).  Each
+// kernel is built for a width DH in {16, 32, 64, 80, 128} and reads rows
+// of dh <= DH elements: the chunks past dh are zero-filled in shared
+// memory and in the q fragments (a cp.async of source size 0), so they add
+// nothing to q k^T, and the output columns past dh are not stored.  dh 80
+// (stablelm-3b) runs at its own width: five k16 steps of q k^T, ten n8
+// tiles of P v, 176-byte padded rows that keep ldmatrix free of bank
+// conflicts; dh 120 (h2o-danube) at 128, 6% of its work on zeros.
+//
 // Bound on this card: the tensor cores.  At smollm's prefill shape (B=4,
 // S=1024, 9 heads over 3 kv heads, Dh=64, causal) the work is 4.8 GFLOP
 // and 12.6 MB: 4.9 us at the bf16 peak, 3.8 us at the memory rate.  At
@@ -45,7 +55,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -63,12 +72,12 @@ template <int DH>
 __device__ __forceinline__ void load_kv_bf16(const bf16* __restrict__ kb,
                                              const bf16* __restrict__ vb,
                                              bf16* kd, bf16* vd, int kstart,
-                                             int Skv) {
+                                             int Skv, int dh) {
   constexpr int LD = DH + 8, CH = DH / 8;   // 16-byte chunks per row
   for (int c = threadIdx.x; c < kTK * CH; c += kTWarps * 32) {
     const int r = c / CH, e = (c % CH) * 8;
-    const bool ok = kstart + r < Skv;
-    const size_t src = static_cast<size_t>(ok ? kstart + r : 0) * DH + e;
+    const bool ok = kstart + r < Skv && e < dh;
+    const size_t src = ok ? static_cast<size_t>(kstart + r) * dh + e : 0;
     sm90::cp_async16(kd + r * LD + e, kb + src, ok);
     sm90::cp_async16(vd + r * LD + e, vb + src, ok);
   }
@@ -79,7 +88,8 @@ template <int DH>
 __global__ void __launch_bounds__(kTWarps * 32)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int G,
-                  int Sq, int Skv, int causal, int window, float scale_log2) {
+                  int Sq, int Skv, int dh, int causal, int window,
+                  float scale_log2) {
   constexpr int LD = DH + 8;                  // padded smem row (elements)
   constexpr int KD = DH / 16;                 // k16 steps over the head dim
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -92,10 +102,10 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
   const int row0 = q0 + warp * 16 + g;               // and row0 + 8
-  const bf16* qb = q + static_cast<size_t>(bhg) * Sq * DH;
-  const bf16* kb = k + static_cast<size_t>(bh) * Skv * DH;
-  const bf16* vb = v + static_cast<size_t>(bh) * Skv * DH;
-  bf16* ob = o + static_cast<size_t>(bhg) * Sq * DH;
+  const bf16* qb = q + static_cast<size_t>(bhg) * Sq * dh;
+  const bf16* kb = k + static_cast<size_t>(bh) * Skv * dh;
+  const bf16* vb = v + static_cast<size_t>(bh) * Skv * dh;
+  bf16* ob = o + static_cast<size_t>(bhg) * Sq * dh;
 
   // Key range this query tile can see; tiles outside it are skipped.
   const int q_last = min(q0 + kTQ, Sq) - 1;
@@ -109,7 +119,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < kTStages - 1; ++i) {
     if (t_lo + i < t_hi)
       load_kv_bf16<DH>(kb, vb, ks + i * kTK * LD, vs + i * kTK * LD,
-                       (t_lo + i) * kTK, Skv);
+                       (t_lo + i) * kTK, Skv, dh);
     else
       sm90::cp_async_commit();
   }
@@ -121,9 +131,9 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = row0 + 8 * (i & 1), c = 16 * kk + 8 * (i >> 1) + 2 * t4;
-      qf[kk][i] = r < Sq ? *reinterpret_cast<const uint32_t*>(
-                               qb + static_cast<size_t>(r) * DH + c)
-                         : 0u;
+      qf[kk][i] = r < Sq && c < dh ? *reinterpret_cast<const uint32_t*>(
+                                         qb + static_cast<size_t>(r) * dh + c)
+                                   : 0u;
     }
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -140,7 +150,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int ahead = (t - t_lo + kTStages - 1) % kTStages;
     if (t + kTStages - 1 < t_hi)
       load_kv_bf16<DH>(kb, vb, ks + ahead * kTK * LD, vs + ahead * kTK * LD,
-                       (t + kTStages - 1) * kTK, Skv);
+                       (t + kTStages - 1) * kTK, Skv, dh);
     else
       sm90::cp_async_commit();
     sm90::cp_async_wait<kTStages - 1>();   // tile t has landed
@@ -244,11 +254,12 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
     const int c = 8 * n + 2 * t4;
+    if (c >= dh) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = row0 + 8 * h;
       if (r < Sq)
-        *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r) * DH + c) =
+        *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(r) * dh + c) =
             sm90::pack_bf16(acc[n][2 * h] * inv[h],
                             acc[n][2 * h + 1] * inv[h]);
     }
@@ -268,12 +279,12 @@ template <int DH>
 __device__ __forceinline__ void load_kv_f32(const float* __restrict__ kb,
                                             const float* __restrict__ vb,
                                             float* kd, float* vd, int kstart,
-                                            int Skv) {
+                                            int Skv, int dh) {
   constexpr int CH = DH / 4;                 // 16-byte chunks per row
   for (int c = threadIdx.x; c < kBK * CH; c += kBQ) {
     const int r = c / CH, e = (c % CH) * 4;
-    const bool ok = kstart + r < Skv;
-    const size_t src = static_cast<size_t>(ok ? kstart + r : 0) * DH + e;
+    const bool ok = kstart + r < Skv && e < dh;
+    const size_t src = ok ? static_cast<size_t>(kstart + r) * dh + e : 0;
     sm90::cp_async16(kd + r * DH + e, kb + src, ok);
     sm90::cp_async16(vd + r * DH + e, vb + src, ok);
   }
@@ -284,7 +295,8 @@ template <int DH>
 __global__ void __launch_bounds__(kBQ)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int G,
-                 int Sq, int Skv, int causal, int window, float scale) {
+                 int Sq, int Skv, int dh, int causal, int window,
+                 float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int QS = DH + 4;                       // padded q row (floats)
   float* qs = reinterpret_cast<float*>(smem_raw);  // [kBQ][QS]
@@ -296,18 +308,19 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const int tid = threadIdx.x;
   const int qpos = q0 + tid;
-  const float* qb = q + static_cast<size_t>(bhg) * Sq * DH;
-  const float* kb = k + static_cast<size_t>(bh) * Skv * DH;
-  const float* vb = v + static_cast<size_t>(bh) * Skv * DH;
-  float* ob = o + static_cast<size_t>(bhg) * Sq * DH;
+  const float* qb = q + static_cast<size_t>(bhg) * Sq * dh;
+  const float* kb = k + static_cast<size_t>(bh) * Skv * dh;
+  const float* vb = v + static_cast<size_t>(bh) * Skv * dh;
+  float* ob = o + static_cast<size_t>(bhg) * Sq * dh;
 
-  // Stage the q tile (coalesced 16-byte loads; rows past Sq are 0).
-  for (int c = tid; c < kBQ * (DH / 8); c += kBQ) {
-    const int r = c / (DH / 8), e = (c % (DH / 8)) * 8;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < Sq)
-      repro_torch::load8(qb + static_cast<size_t>(q0 + r) * DH + e, f);
-    repro_torch::store8(qs + r * QS + e, f);
+  // Stage the q tile (coalesced 16-byte loads; rows past Sq and columns
+  // past dh are 0).
+  for (int c = tid; c < kBQ * (DH / 4); c += kBQ) {
+    const int r = c / (DH / 4), e = (c % (DH / 4)) * 4;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq && e < dh)
+      f = ld4(qb + static_cast<size_t>(q0 + r) * dh + e);
+    *reinterpret_cast<float4*>(qs + r * QS + e) = f;
   }
 
   // Key range this query tile can see; tiles outside it are skipped.
@@ -322,13 +335,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DH; ++i) acc[i] = 0.f;
 
-  if (t_lo < t_hi) load_kv_f32<DH>(kb, vb, ks, vs, t_lo * kBK, Skv);
+  if (t_lo < t_hi) load_kv_f32<DH>(kb, vb, ks, vs, t_lo * kBK, Skv, dh);
 
   for (int t = t_lo; t < t_hi; ++t) {
     const int stage = (t - t_lo) & 1;
     if (t + 1 < t_hi) {
       load_kv_f32<DH>(kb, vb, ks + (stage ^ 1) * kBK * DH,
-                      vs + (stage ^ 1) * kBK * DH, (t + 1) * kBK, Skv);
+                      vs + (stage ^ 1) * kBK * DH, (t + 1) * kBK, Skv, dh);
       sm90::cp_async_wait<1>();
     } else {
       sm90::cp_async_wait<0>();
@@ -394,14 +407,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (qpos < Sq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* orow = ob + static_cast<size_t>(qpos) * DH;
+    float* orow = ob + static_cast<size_t>(qpos) * dh;
 #pragma unroll
-    for (int d = 0; d < DH; d += 8) {
-      float f[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = acc[d + i] * inv;
-      repro_torch::store8(orow + d, f);
-    }
+    for (int d = 0; d < DH; d += 4)
+      if (d < dh)
+        *reinterpret_cast<float4*>(orow + d) =
+            make_float4(acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv,
+                        acc[d + 3] * inv);
   }
 }
 
@@ -417,66 +429,70 @@ int set_smem(Kern kern, size_t smem) {
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
-                int G, int Sq, int Skv, int causal, int window, float scale,
-                cudaStream_t stream) {
+                int G, int Sq, int Skv, int dh, int causal, int window,
+                float scale, cudaStream_t stream) {
   const size_t smem = 2 * kTStages * kTK * (D + 8) * sizeof(bf16);
   auto kern = flash_bf16_kernel<D>;
   if (int e = set_smem(kern, smem)) return e;
   const dim3 grid(BH * G, (Sq + kTQ - 1) / kTQ);
   kern<<<grid, kTWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), G, Sq, Skv, causal,
-      window, scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), G, Sq, Skv, dh,
+      causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
-               int G, int Sq, int Skv, int causal, int window, float scale,
-               cudaStream_t stream) {
+               int G, int Sq, int Skv, int dh, int causal, int window,
+               float scale, cudaStream_t stream) {
   const size_t smem = (kBQ * (D + 4) + kStages * kBK * 2 * D) * sizeof(float);
   auto kern = flash_f32_kernel<D>;
   if (int e = set_smem(kern, smem)) return e;
   const dim3 grid(BH * G, (Sq + kBQ - 1) / kBQ);
   kern<<<grid, kBQ, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Skv,
+      static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Skv, dh,
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int BH, int G, int Sq, int Skv, int causal, int window,
+           int BH, int G, int Sq, int Skv, int dh, int causal, int window,
            float scale, cudaStream_t s) {
+  if (dh > D || dh * (dtype == 0 ? 2 : 4) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_bf16<D>(q, k, v, o, BH, G, Sq, Skv, causal, window, scale,
-                          s);
+    return launch_bf16<D>(q, k, v, o, BH, G, Sq, Skv, dh, causal, window,
+                          scale, s);
   if (dtype == 1)
-    return launch_f32<D>(q, k, v, o, BH, G, Sq, Skv, causal, window, scale,
-                         s);
+    return launch_f32<D>(q, k, v, o, BH, G, Sq, Skv, dh, causal, window,
+                         scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32.  Dh == Dv in {16, 32, 64, 128};
+// dtype: 0 = bfloat16, 1 = float32.  Rows of dh elements (Dh == Dv, whole
+// 16-byte chunks), computed at the built width `width` >= dh, one of
+// {16, 32, 64, 80, 128} (kernels/flash_attention/ops.py: kernel_dims);
 // window <= 0 means no sliding window.  Pointers 16-byte aligned and
 // contiguous in the layout above (the Python wrapper checks).  Returns
 // the cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int BH, int G,
-                                      int Sq, int Skv, int dh, int dv,
+                                      int Sq, int Skv, int dh, int width,
                                       int causal, int window, float scale,
                                       int dtype, void* stream) {
   if (BH <= 0 || G <= 0 || Sq <= 0) return 0;
-  if (dh != dv) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16: return launch<16>(dtype, q, k, v, o, BH, G, Sq, Skv, causal, window, scale, s);
-    case 32: return launch<32>(dtype, q, k, v, o, BH, G, Sq, Skv, causal, window, scale, s);
-    case 64: return launch<64>(dtype, q, k, v, o, BH, G, Sq, Skv, causal, window, scale, s);
-    case 128: return launch<128>(dtype, q, k, v, o, BH, G, Sq, Skv, causal, window, scale, s);
+  switch (width) {
+    case 16: return launch<16>(dtype, q, k, v, o, BH, G, Sq, Skv, dh, causal, window, scale, s);
+    case 32: return launch<32>(dtype, q, k, v, o, BH, G, Sq, Skv, dh, causal, window, scale, s);
+    case 64: return launch<64>(dtype, q, k, v, o, BH, G, Sq, Skv, dh, causal, window, scale, s);
+    case 80: return launch<80>(dtype, q, k, v, o, BH, G, Sq, Skv, dh, causal, window, scale, s);
+    case 128: return launch<128>(dtype, q, k, v, o, BH, G, Sq, Skv, dh, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

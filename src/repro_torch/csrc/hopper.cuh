@@ -2,7 +2,8 @@
 // thin wrappers over PTX:
 //   - cp.async 16-byte copies and their groups;
 //   - ldmatrix (plain and transposed) and mma.sync m16n8k16 bf16 -> f32,
-//     the warp-level tensor-core path (flash_attention.cu);
+//     the warp-level tensor-core path (flash_attention.cu), and m16n8k8
+//     tf32 -> f32 with TF32 rounding (mlstm_chunk.cu);
 //   - mbarriers, TMA tensor loads and stores, named barriers, wgmma
 //     shared-memory descriptors and wgmma m64n256k16 bf16 -> f32, the
 //     warpgroup path (moe_gmm.cu);
@@ -66,6 +67,26 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16x8 f32) += a (16x8 tf32, row-major) * b (8x8 tf32, column-major).
+// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g+8, t),
+// a2 (g, t+4), a3 (g+8, t+4); b0 (t, g), b1 (t+4, g); c as in m16n8k16.
+// The tensor cores read 19 bits of each operand: round with tf32_rna.
+__device__ __forceinline__ void mma_1688_tf32(float c[4], const uint32_t a[4],
+                                              const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x rounded to TF32 (nearest, ties away), as the bits of an f32.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
 // Two floats as one bf16x2 register, lo in the low half (the lower column

@@ -7,9 +7,14 @@ The file name carries a hash of the source and the flags, so an edited
 source rebuilds and a stale library is never loaded.  ``build_all``
 starts one ``nvcc`` per source together and waits for all of them.
 
-Libraries are loaded with ``ctypes``: every pointer and the stream are
-``c_void_p``, and every C entry returns ``cudaGetLastError()`` after its
-launch so that a refused launch raises in the wrapper.
+Libraries are loaded with ``ctypes``.  A wrapper calls its C entry
+through an ``Entry``, the launch path: the argument types are set once,
+when the entry is first bound (``c_void_p`` for every pointer and the
+stream, so plain Python ints pass), the bound function is kept, so no
+lock is taken per call, and the stream is the raw handle of PyTorch's
+current stream (``stream``), read without building a ``Stream`` object.
+Every C entry returns ``cudaGetLastError()`` after its launch, so that a
+refused launch raises in the wrapper.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -92,16 +99,45 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a C entry."""
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+_ARGTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+             "q": ctypes.c_longlong, "f": ctypes.c_float}
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+class Entry:
+    """The C entry ``name`` of ``csrc/<lib>.cu``, bound on its first call.
+
+    ``signature`` gives one letter per argument: ``p`` a pointer or the
+    stream (pass ``data_ptr()`` or ``stream(...)``, plain ints), ``i`` an
+    int, ``q`` a 64-bit int, ``f`` a float.  A call returns nothing and
+    raises ``RuntimeError`` on a non-zero ``cudaError_t``."""
+
+    __slots__ = ("lib", "name", "signature", "fn")
+
+    def __init__(self, lib: str, name: str, signature: str):
+        self.lib, self.name, self.signature = lib, name, signature
+        self.fn = None
+
+    def bind(self):
+        fn = getattr(load(self.lib), self.name)
+        fn.argtypes = [_ARGTYPES[c] for c in self.signature]
+        fn.restype = ctypes.c_int
+        self.fn = fn
+        return fn
+
+    def __call__(self, *args) -> None:
+        err = (self.fn or self.bind())(*args)
+        if err:
+            raise RuntimeError(f"{self.name}: CUDA launch failed with "
+                               f"cudaError {err}")
 
 
-__all__ = ["build_all", "load", "check", "stream_of", "sources",
-           "BUILD_DIR", "CSRC", "NVCC_FLAGS"]
+def stream(device_index: int) -> int:
+    """The raw handle of the current CUDA stream of a device, as an int:
+    the capture stream inside ``torch.cuda.graph``.  PyTorch's own
+    accessor (``at::cuda::getCurrentCUDAStream``), without the ``Stream``
+    object that ``torch.cuda.current_stream`` builds."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+__all__ = ["build_all", "load", "Entry", "stream", "sources", "BUILD_DIR",
+           "CSRC", "NVCC_FLAGS"]

@@ -8,30 +8,47 @@ model layout ``(B, S, H, Dh)`` to it and back, as
 On CPU tensors the plain version (``ref.attention_ref``) runs.  On CUDA
 tensors ``csrc/flash_attention.cu`` is launched or the call raises; it
 never falls back.  ``flash_attention.launches`` counts kernel launches.
+
+The kernel takes any head dim up to 128 with Dv == Dh (``kernel_dims``):
+it is built for the widths ``WIDTHS`` and zero-fills the columns between
+a row's head dim and its width in shared memory.  Rows must be whole
+16-byte chunks; a head dim whose rows are not (bf16 Dh 12: 24 bytes) is
+zero-padded here, in a copy of q, k and v, to the next such width, and
+the output is cut back.  The kernel still runs; the copy is the
+wrapper's only extra work, on the small models that have such heads.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .ref import attention_ref
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-#: head dims the kernel is instantiated for (Dh == Dv)
-HEAD_DIMS = (16, 32, 64, 128)
+#: the widths the kernel is built for; a head dim runs at the next one
+WIDTHS = (16, 32, 64, 80, 128)
+_LAUNCH = _build.Entry("flash_attention", "flash_attention_launch",
+                       "ppppiiiiiiiifip")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+def kernel_dims(dh: int, dv: int, elt: int) -> tuple[int, int]:
+    """(row, width) for head dim ``dh`` at ``elt`` bytes per element.
+
+    ``row`` is dh rounded up to whole 16-byte chunks (the wrapper pads q,
+    k and v to it where it differs); ``width`` is the smallest built width
+    that holds ``row`` (the kernel zero-fills the columns between them).
+    Dh > 128 and Dv != Dh raise ``NotImplementedError``."""
+    if dv != dh or not 0 < dh <= WIDTHS[-1]:
+        raise NotImplementedError(
+            f"flash_attention kernel takes Dh == Dv <= {WIDTHS[-1]}, got "
+            f"Dh={dh}, Dv={dv} (Dh > {WIDTHS[-1]} or Dv != Dh is MLA: "
+            "ROADMAP A9)")
+    step = 16 // elt
+    row = -(-dh // step) * step
+    return row, next(w for w in WIDTHS if w >= row)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -50,29 +67,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes bf16 or f32 q/k/v "
                         f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if Dh != Dv or Dh not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention kernel is built for Dh == Dv in {HEAD_DIMS}, "
-            f"got Dh={Dh}, Dv={Dv} (Dv != Dh is MLA: ROADMAP A9)")
+    row, width = kernel_dims(Dh, Dv, q.element_size())
     if k.shape != (BH, Skv, Dh) or v.shape[:2] != (BH, Skv):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be > 0, got {window}")
+    if row != Dh:
+        q, k, v = (F.pad(t, (0, row - Dh)) for t in (q, k, v))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = torch.empty((BH, G, Sq, Dv), dtype=q.dtype, device=q.device)
+    o = torch.empty((BH, G, Sq, row), dtype=q.dtype, device=q.device)
     for t in (q, k, v, o):
         if t.data_ptr() % 16:
             raise ValueError("flash_attention kernel needs 16-byte aligned "
                              "tensors")
-    err = _lib().flash_attention_launch(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(o.data_ptr()),
-        BH, G, Sq, Skv, Dh, Dv, int(causal), int(window or 0),
-        1.0 / math.sqrt(Dh), _DTYPE_CODE[q.dtype], _build.stream_of(q))
-    _build.check(err, "flash_attention")
+    dev = q.get_device()
+    _LAUNCH(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            BH, G, Sq, Skv, row, width, int(causal), int(window or 0),
+            1.0 / math.sqrt(Dh), _DTYPE_CODE[q.dtype], _build.stream(dev))
     flash_attention.launches += 1
-    return o
+    return o if row == Dh else o[..., :Dh]
 
 
 flash_attention.launches = 0

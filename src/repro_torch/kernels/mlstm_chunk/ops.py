@@ -5,16 +5,17 @@ pre-activations ``(B, S, H)`` and returns ``(B, S, H·Dh)`` f32, as
 ``repro/kernels/mlstm_chunk/ops.py`` does.  On CPU tensors it computes the
 plain version (``ref.mlstm_chunk_ref`` over the kernel layout
 ``(B·H, S, Dh)``).  On CUDA tensors it launches ``csrc/mlstm_chunk.cu``
-(a scores kernel, then the recurrence), which reads the model layout
-through strides and writes the output layout directly, or raises; it
-never falls back.
-``mlstm_chunk.launches`` counts kernel launches.
+or raises; it never falls back.  One call launches two kernels, a state
+pass and an output pass (``ref.mlstm_chunk_two_pass`` is their blocking
+in plain PyTorch); ``mlstm_chunk.launches`` counts calls that launch
+them.  The kernels read the model layout through strides and write the
+output layout directly; q, k and v are copied only where their rows are
+not whole 16-byte chunks (they are then zero-padded to the next).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .ref import mlstm_chunk_ref
@@ -23,17 +24,16 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 #: time steps per chunk inside the CUDA kernel (the output does not
 #: depend on the chunking beyond rounding)
 KERNEL_CHUNK = 64
+#: the kernel's tile of the matrix memory C: the states are padded to it
+KERNEL_TILE = 64
+_LAUNCH = _build.Entry("mlstm_chunk", "mlstm_chunk_launch",
+                       "pppppppiiiiiqqqqqqip")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("mlstm_chunk")
-    fn = lib.mlstm_chunk_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 6
-                       + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+def scratch_floats(B: int, S: int, H: int, dp: int) -> int:
+    """f32 scratch of one launch: C, n and m entering every chunk."""
+    dpad = -(-dp // KERNEL_TILE) * KERNEL_TILE
+    return B * H * -(-S // KERNEL_CHUNK) * (dpad * dpad + dpad + 1)
 
 
 def to_kernel_layout(q, k, v, i_pre, f_pre):
@@ -85,28 +85,32 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, i "
                          f"{tuple(i_pre.shape)}, f {tuple(f_pre.shape)}")
     # q, k and v share one (B, S, H) stride triple with unit stride on Dh
-    # (views of one qkv projection do); anything else is copied.
+    # (views of one qkv projection do), rows of whole 16-byte chunks at
+    # 16-byte aligned addresses; anything else is copied, zero-padded to
+    # rows of dp elements
+    vec = 16 // q.element_size()
+    dp = -(-Dh // vec) * vec
     if q.stride(3) != 1 or k.stride() != q.stride() or \
-            v.stride() != q.stride():
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            v.stride() != q.stride() or dp != Dh or \
+            any(st % vec for st in q.stride()[:3]) or \
+            any(t.data_ptr() % 16 for t in (q, k, v)):
+        q, k, v = (F.pad(t, (0, dp - Dh)).contiguous() for t in (q, k, v))
     if f_pre.stride() != i_pre.stride():
         i_pre, f_pre = i_pre.contiguous(), f_pre.contiguous()
-    if B * H > 65535:
-        raise ValueError(f"mlstm_chunk kernel: B*H={B * H} exceeds the "
-                         "grid's 65535 rows")
+    if B * H > 65535 or -(-S // KERNEL_CHUNK) > 65535:
+        raise ValueError(f"mlstm_chunk kernel: B*H={B * H} and the "
+                         f"{-(-S // KERNEL_CHUNK)} chunks must not exceed "
+                         "the grid's 65535")
     y = torch.empty((B, S, H, Dh), dtype=torch.float32, device=q.device)
-    # raw q kᵀ of every chunk, written by the first kernel and read by
-    # the second; freeing it on return is safe, as the caching allocator
-    # hands its memory only to work queued later on this stream
-    n_chunks = -(-S // KERNEL_CHUNK)
-    scores = torch.empty((B * H, n_chunks * KERNEL_CHUNK, KERNEL_CHUNK),
-                         dtype=torch.float32, device=q.device)
-    err = _lib().mlstm_chunk_launch(
-        *(ctypes.c_void_p(t.data_ptr())
-          for t in (q, k, v, i_pre, f_pre, scores, y)),
-        B, S, H, Dh, *q.stride()[:3], *i_pre.stride(),
-        _DTYPE_CODE[q.dtype], _build.stream_of(q))
-    _build.check(err, "mlstm_chunk")
+    # the states entering every chunk, written by the state pass and read
+    # by the output pass; freeing them on return is safe, as the caching
+    # allocator hands their memory only to work queued later on this
+    # stream
+    scratch = torch.empty(scratch_floats(B, S, H, dp), dtype=torch.float32,
+                          device=q.device)
+    _LAUNCH(*(t.data_ptr() for t in (q, k, v, i_pre, f_pre, scratch, y)),
+            B, S, H, Dh, dp, *q.stride()[:3], *i_pre.stride(),
+            _DTYPE_CODE[q.dtype], _build.stream(q.get_device()))
     mlstm_chunk.launches += 1
     return y.reshape(B, S, H * Dh)
 

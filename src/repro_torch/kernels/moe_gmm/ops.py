@@ -15,8 +15,6 @@ viewed as ``(E, D, 2·Fe)``).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
@@ -25,14 +23,7 @@ from .ref import moe_gmm_ref
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("moe_gmm")
-    fn = lib.moe_gmm_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+_LAUNCH = _build.Entry("moe_gmm", "moe_gmm_launch", "ppppiiiiip")
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
@@ -73,10 +64,8 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
     x, w = (t.clone() if t.data_ptr() % 16 else t for t in (x, w))
     gs = group_sizes.to(torch.int32).contiguous()
     y = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
-    err = _lib().moe_gmm_launch(
-        *(ctypes.c_void_p(t.data_ptr()) for t in (x, w, gs, y)),
-        E, C, D, F, _DTYPE_CODE[x.dtype], _build.stream_of(x))
-    _build.check(err, "moe_gmm")
+    _LAUNCH(*(t.data_ptr() for t in (x, w, gs, y)), E, C, D, F,
+            _DTYPE_CODE[x.dtype], _build.stream(x.get_device()))
     moe_gmm.launches += 1
     return y
 

@@ -16,8 +16,6 @@ kernel takes N in {4, 8, 16} and Din a multiple of 8.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
@@ -27,15 +25,7 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 KERNEL_N = (4, 8, 16)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ssd_scan")
-    fn = lib.ssd_scan_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 4
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+_LAUNCH = _build.Entry("ssd_scan", "ssd_scan_launch", "ppppppiiiiqqqqiip")
 
 
 def _streamable(t: torch.Tensor) -> bool:
@@ -85,11 +75,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A, Bm, Cm = (t.to(torch.float32).contiguous() for t in (A, Bm, Cm))
     A, Bm, Cm = (t.clone() if t.data_ptr() % 16 else t for t in (A, Bm, Cm))
     y = torch.empty((B, S, Din), dtype=torch.float32, device=x.device)
-    err = _lib().ssd_scan_launch(
-        *(ctypes.c_void_p(t.data_ptr()) for t in (x, dt, A, Bm, Cm, y)),
-        B, S, Din, N, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[dt.dtype], _build.stream_of(x))
-    _build.check(err, "ssd_scan")
+    _LAUNCH(*(t.data_ptr() for t in (x, dt, A, Bm, Cm, y)),
+            B, S, Din, N, x.stride(0), x.stride(1), dt.stride(0),
+            dt.stride(1), _DTYPE_CODE[x.dtype], _DTYPE_CODE[dt.dtype],
+            _build.stream(x.get_device()))
     ssd_scan.launches += 1
     return y
 

@@ -28,7 +28,8 @@ pytestmark = pytest.mark.gpu
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("R,D", [(8, 576), (4096, 576), (33, 96)])
+@pytest.mark.parametrize("R,D", [(8, 576), (4096, 576), (33, 96), (8, 4096),
+                                 (4096, 4096), (33, 60), (7, 100)])
 def test_rmsnorm_kernel(cuda, dtype, R, D):
     gen = torch.Generator(device=cuda).manual_seed(R)
     x = torch.randn(R, D, generator=gen, device=cuda).to(torch_dtype(dtype))
@@ -41,10 +42,38 @@ def test_rmsnorm_kernel(cuda, dtype, R, D):
                                **tol(dtype))
 
 
+def test_rmsnorm_kernel_scale_and_views(cuda):
+    """A bf16 scale with bf16 x (read as it is, no cast), a non-contiguous
+    x, a contiguous x 2 bytes off 16-byte alignment (the narrow path), and
+    capture in a CUDA graph: one launch per call each time."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(16, 4096 + 1, generator=gen, device=cuda).bfloat16()
+    s = (torch.randn(4096, generator=gen, device=cuda) + 1.0).bfloat16()
+    flat = x.reshape(-1)[:1 + 16 * 4096]
+    for xv in (x[:, :4096], flat[1:].view(16, 4096), x[:, 1:].contiguous()):
+        before = trms.rmsnorm.launches
+        got = trms.rmsnorm(xv, s)
+        torch.cuda.synchronize()
+        assert trms.rmsnorm.launches == before + 1
+        np.testing.assert_allclose(f32(got), f32(rmsnorm_ref(xv, s)),
+                                   **tol("bfloat16"))
+    xc = x[:, 1:].contiguous()
+    trms.rmsnorm(xc, s)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = trms.rmsnorm(xc, s)
+    xc.copy_(x[:, :4096])
+    g.replay()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f32(out), f32(rmsnorm_ref(xc, s)),
+                               **tol("bfloat16"))
+
+
 def test_rmsnorm_kernel_refuses(cuda):
-    with pytest.raises(ValueError, match="D % 8"):
+    with pytest.raises(ValueError, match="scale must be"):
         trms.rmsnorm(torch.ones(2, 12, device=cuda),
-                     torch.ones(12, device=cuda))
+                     torch.ones(13, device=cuda))
     with pytest.raises(TypeError, match="bf16 or f32"):
         trms.rmsnorm(torch.ones(2, 16, device=cuda, dtype=torch.float16),
                      torch.ones(16, device=cuda))
@@ -59,6 +88,13 @@ def test_rmsnorm_kernel_refuses(cuda):
     (1, 300, 300, 8, 2, 128, True, None),
     (1, 77, 77, 3, 1, 16, True, 16),
     (4, 1024, 1024, 32, 8, 128, True, None),   # jamba prefill
+    (2, 200, 200, 5, 1, 12, True, None),       # smollm-360m smoke: Dh 12
+    (2, 200, 200, 5, 1, 12, True, 16),
+    (2, 300, 300, 32, 32, 80, True, None),     # stablelm-3b: Dh 80
+    (2, 300, 300, 32, 32, 80, True, 96),
+    (1, 333, 333, 32, 8, 120, True, None),     # h2o-danube-3-4b: Dh 120
+    (1, 333, 333, 32, 8, 120, True, 96),
+    (2, 64, 160, 4, 2, 120, False, None),
 ])
 def test_flash_attention_kernel(cuda, dtype, B, Sq, Skv, H, KVH, Dh, causal,
                                 window):
@@ -101,13 +137,40 @@ def test_flash_attention_kernel_peaked_softmax(cuda, B, S, H, KVH, Dh,
 
 
 def test_flash_attention_kernel_refuses(cuda):
-    q = torch.ones(1, 1, 8, 80, device=cuda)
-    k = torch.ones(1, 8, 80, device=cuda)
+    q = torch.ones(1, 1, 8, 192, device=cuda)
+    k = torch.ones(1, 8, 192, device=cuda)
     with pytest.raises(NotImplementedError, match="Dh"):
-        tfa.flash_attention(q, k, k)
+        tfa.flash_attention(q, k, k[..., :128])
     with pytest.raises(TypeError, match="bf16 or f32"):
         tfa.flash_attention(q[..., :64].half(), k[..., :64].half(),
                             k[..., :64].half())
+
+
+@pytest.mark.parametrize("arch,smoke,window", [
+    ("stablelm-3b", False, None),          # Dh 80, LayerNorm, rope 25%
+    ("h2o-danube-3-4b", False, 96),        # Dh 120, sliding window
+    ("smollm-360m", True, None),           # Dh 12, d 60
+])
+def test_prefill_runs_the_kernels_at_any_head_dim(cuda, arch, smoke, window):
+    """Two layers at the published widths (the smoke config for
+    smollm-360m), kernels against the plain path; the window is cut
+    below the prompt so that it masks."""
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke), n_layers=2)
+    if window is not None:
+        cfg = dataclasses.replace(cfg, attn_window=window)
+    lm_k = LM(cfg, use_kernels=True, device=cuda)
+    lm_p = LM(cfg, use_kernels=False, device=cuda)
+    params, _ = lm_k.init(0)
+    toks = torch.randint(0, cfg.vocab, (2, 200), device=cuda)
+    fa0, rms0 = tfa.flash_attention.launches, trms.rmsnorm.launches
+    got = lm_k.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches - fa0 == cfg.n_layers
+    assert trms.rmsnorm.launches - rms0 == \
+        (2 * cfg.n_layers + 1 if cfg.norm == "rms" else 0)
+    want = lm_p.prefill(params, {"tokens": toks})
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)
 
 
 @pytest.fixture
@@ -142,6 +205,8 @@ MLSTM_TOL = dict(rtol=2e-3, atol=2e-3)
     (2, 32, 4, 32, 16),        # xlstm smoke
     (2, 48, 1, 8, 48),
     (1, 200, 3, 48, 200),      # ragged last chunk, Dh not a tile multiple
+    (2, 100, 2, 64, 100),      # ragged last chunk of 36 steps
+    (1, 70, 2, 6, 70),         # rows of 6 elements: padded in a copy
 ])
 def test_mlstm_chunk_kernel(cuda, dtype, B, S, H, Dh, chunk):
     gen = torch.Generator(device=cuda).manual_seed(S + Dh)

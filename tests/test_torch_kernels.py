@@ -12,12 +12,14 @@ import torch
 
 from repro.kernels.flash_attention import ops as jfa
 from repro.kernels.flash_attention.ref import attention_ref as j_attention
+from repro.kernels.mlstm_chunk import kernel as jmlk
 from repro.kernels.mlstm_chunk import ops as jml
 from repro.kernels.rmsnorm import ops as jrms
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.mlstm_chunk import ops as tml
-from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_ref,
+                                                  mlstm_chunk_two_pass)
 from repro_torch.kernels.moe_gmm import ops as tgmm
 from repro_torch.kernels.rmsnorm import ops as trms
 from repro_torch.kernels.ssd_scan import ops as tssd
@@ -47,6 +49,19 @@ def test_rmsnorm_flattens_leading_dims(dtype):
     want = jrms.rmsnorm(xj, sj)
     got = trms.rmsnorm(xt, st)
     assert got.shape == xt.shape
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [60, 100])
+def test_rmsnorm_matches_pallas_any_width(dtype, D):
+    """Widths that fill no 16-byte chunk (the kernel's narrow path)."""
+    rng = np.random.default_rng(D)
+    xj, xt = both(rng.normal(size=(32, D)), dtype)
+    sj, st = both(rng.normal(size=(D,)) + 1.0, "float32")
+    want = jrms.rmsnorm(xj, sj, row_block=16)
+    got = trms.rmsnorm(xt, st)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
     np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
 
 
@@ -102,6 +117,47 @@ def test_mha_ragged_lengths(dtype, Sq, Skv, causal, window):
     assert torch.equal(back, tfa.from_kernel_layout(got, B))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("Dh", [12, 80, 120])
+def test_mha_matches_pallas_head_dims(dtype, Dh, window):
+    """The head dims of smollm-360m's smoke model (12), stablelm-3b (80)
+    and h2o-danube-3-4b (120, which slides a window)."""
+    rng = np.random.default_rng(Dh + (window or 0))
+    B, S, H, KVH = 1, 64, 4, 2
+    (qj, qt), (kj, kt), (vj, vt) = _mha_inputs(rng, B, S, S, H, KVH, Dh,
+                                               dtype)
+    want = jfa.mha(qj, kj, vj, causal=True, window=window, q_block=32,
+                   kv_block=32)
+    got = tfa.mha(qt, kt, vt, causal=True, window=window)
+    assert got.dtype == qt.dtype and tuple(got.shape) == (B, S, H, Dh)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("dh,elt,row,width", [
+    (12, 2, 16, 16),       # smollm-360m smoke, bf16: 24-byte rows padded
+    (12, 4, 12, 16),       # f32: 48-byte rows, zero-filled to 16
+    (16, 2, 16, 16),
+    (40, 2, 40, 64),
+    (64, 2, 64, 64),
+    (80, 2, 80, 80),       # stablelm-3b: a width of its own
+    (96, 4, 96, 128),
+    (120, 2, 120, 128),    # h2o-danube-3-4b
+    (127, 2, 128, 128),
+    (128, 4, 128, 128),
+])
+def test_flash_kernel_dims(dh, elt, row, width):
+    assert tfa.kernel_dims(dh, dh, elt) == (row, width)
+    assert width in tfa.WIDTHS and row % (16 // elt) == 0
+
+
+@pytest.mark.parametrize("dh,dv", [(192, 128), (136, 136), (64, 32),
+                                   (0, 0)])
+def test_flash_kernel_dims_refuses(dh, dv):
+    with pytest.raises(NotImplementedError, match="Dh"):
+        tfa.kernel_dims(dh, dv, 2)
+
+
 def test_layout_round_trip():
     q = torch.randn(2, 9, 6, 16)
     k = torch.randn(2, 9, 2, 16)
@@ -139,6 +195,56 @@ def test_mlstm_chunk_matches_pallas(dtype, B, S, H, Dh, chunk):
     got = tml.mlstm_chunk(*t, chunk=chunk)
     assert got.dtype == torch.float32
     assert tuple(got.shape) == (B, S, H * Dh)
+    np.testing.assert_allclose(f32(got), f32(want), **MLSTM_TOL)
+
+
+def _two_pass_model_layout(t, chunk):
+    B, S, H, Dh = t[0].shape
+    y = mlstm_chunk_two_pass(*tml.to_kernel_layout(*t), chunk=chunk)
+    return y.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, H * Dh)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,Dh,chunk", [
+    (2, 32, 2, 16, 8),
+    (1, 64, 4, 32, 16),
+    (2, 48, 1, 8, 48),
+    (2, 32, 4, 32, 16),
+])
+def test_mlstm_two_pass_matches_pallas(dtype, B, S, H, Dh, chunk):
+    """The CUDA kernel's two-pass blocking, at its own chunk, against the
+    Pallas kernel at the model's, in the kernel layout."""
+    rng = np.random.default_rng(S * H + Dh)
+    j, t = zip(*_mlstm_inputs(rng, B, S, H, Dh, dtype))
+    want = jmlk.mlstm_chunk(*(jnp.asarray(f32(x), getattr(jnp, dtype))
+                              for x in tml.to_kernel_layout(*t)),
+                            chunk=chunk)
+    got = mlstm_chunk_two_pass(*tml.to_kernel_layout(*t),
+                               chunk=tml.KERNEL_CHUNK)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B * H, S, Dh)
+    np.testing.assert_allclose(f32(got), f32(want), **MLSTM_TOL)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+def test_mlstm_two_pass_chunks_match_pallas(chunk):
+    rng = np.random.default_rng(13)
+    B, S, H, Dh = 2, 64, 3, 16
+    j, t = zip(*_mlstm_inputs(rng, B, S, H, Dh))
+    want = jml.mlstm_chunk(*j, chunk=chunk)
+    got = _two_pass_model_layout(t, chunk)
+    np.testing.assert_allclose(f32(got), f32(want), **MLSTM_TOL)
+
+
+@pytest.mark.parametrize("S,chunk", [(40, 16), (70, 64)])
+def test_mlstm_two_pass_ragged_last_chunk(S, chunk):
+    """A last chunk shorter than the rest, as the CUDA kernel meets when
+    S is no multiple of its chunk; the Pallas kernel runs one that
+    divides S."""
+    rng = np.random.default_rng(S)
+    B, H, Dh = 1, 2, 8
+    j, t = zip(*_mlstm_inputs(rng, B, S, H, Dh))
+    want = jml.mlstm_chunk(*j, chunk=S // 2 if S % 2 == 0 else S)
+    got = _two_pass_model_layout(t, chunk)
     np.testing.assert_allclose(f32(got), f32(want), **MLSTM_TOL)
 
 
@@ -198,6 +304,31 @@ def test_cpu_path_launches_nothing():
     tgmm.moe_gmm(torch.randn(2, 8, 16), torch.randn(2, 16, 8),
                  torch.tensor([8, 3]))
     assert [f.launches for f in counted] == before
+
+
+def test_entry_binds_once_and_raises_on_error(monkeypatch):
+    """The launch path: argument types from the signature, set once when
+    the entry is first called; a non-zero return raises.  libc's ``abs``
+    stands in for a kernel's C entry (it returns its argument's size)."""
+    import ctypes
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        return ctypes.CDLL(None)
+    monkeypatch.setattr(_build, "load", load)
+    entry = _build.Entry("libc", "abs", "i")
+    entry(0)
+    entry(0)
+    assert loads == ["libc"]
+    assert entry.fn.argtypes == [ctypes.c_int]
+    with pytest.raises(RuntimeError, match="abs: CUDA launch failed with "
+                                           "cudaError 7"):
+        entry(-7)
+    # pointers and 64-bit ints pass whole; ints and floats as C's
+    assert [ctypes.sizeof(_build._ARGTYPES[k]) for k in "piqf"] == \
+        [8, 4, 8, 4]
+    assert _build._ARGTYPES["f"] is ctypes.c_float
 
 
 def test_build_sources_and_flags():
