@@ -35,7 +35,11 @@ head_dim 120, window 4096).  On the card:
    it has no library time); the selective
    scan at jamba's prefill shape (B=4, S=1024, Din=8192, N=16; x bf16,
    dt f32, and all f32) at 1e-4, the reference's tolerance (no library
-   call either); the grouped expert matmul comes after phase 10 (11);
+   call either), against ``ssd_scan_ref``, and at 1e-6 against
+   ``ssd_scan_kernel_order`` (the kernel's own order and software
+   exponential in plain PyTorch, which the card's ``torch.exp2`` matches
+   bit for bit there); the grouped expert matmul comes after phase 10
+   (11);
 4. smollm prefill: ``LM.prefill`` with ``use_kernels=True`` at B=4,
    S=1024 against the plain path on the card (atol 0.25, rtol 0.1); the
    flash attention kernel must launch 30 times and the RMSNorm kernel 61;
@@ -54,7 +58,16 @@ head_dim 120, window 4096).  On the card:
    h2o-danube (stablelm's norms are LayerNorms: none);
 9. jamba prefill: as 4, at B=4, S=1024; exactly 33 RMSNorm (16 ``norm1``,
    16 ``norm2``, ``final_norm``), 2 flash-attention, 14 selective-scan
-   and 16 grouped-matmul launches; prints the MoE dropped fraction;
+   and 16 grouped-matmul launches; prints the MoE dropped fraction and
+   the share of the tolerance used beside the earlier scan kernel's;
+   then one more prefill under ``torch.profiler`` (CPU and CUDA
+   activity), broken down on ``[prefill-breakdown]`` lines: the window,
+   the device time in it and the device's busy and idle share, device
+   time by category (each hand-written kernel by its symbols, cuBLAS
+   GEMMs, copies and casts, other elementwise and reduction kernels, the
+   rest) and the ten device operations that took the most time; the
+   trace is written to ``build/traces/`` (``scripts/trace_by_operator.py``
+   reads it by launching PyTorch operator);
 10. jamba serve: ``run_static`` (MoE configs serve on the static path)
    with 8 slots over 8 requests (prompts 16-128, 16-64 new tokens,
    greedy); every request completes, the grouped matmul launches at
@@ -104,7 +117,8 @@ from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_scan_kernel_order, ssd_scan_ref)
 from repro_torch.launch.scheduler import (ContinuousBatcher,  # noqa: E402
                                           Request, decode_offline,
                                           prefill_bucket, run_static)
@@ -144,6 +158,13 @@ MARGIN = 0.05
 MLSTM_TOL = 2e-3
 #: ... and for the selective scan
 SSD_TOL = 1e-4
+#: ... and for the selective scan against its kernel-order mirror at
+#: jamba's shape, where they agree bit for bit; the earlier kernel (four
+#: states per lane, a shuffle reduction) differs by 2.86e-6 there
+SSD_ORDER_TOL = 1e-6
+#: share of the jamba prefill check's tolerance that the earlier scan
+#: kernel (four states per lane) used in the same check
+J_TOL_USED_EARLIER = 0.69
 #: jamba serving traffic (phase 10)
 J_REQUESTS, J_PROMPT_RANGE, J_GEN_RANGE = 8, (16, 128), (16, 64)
 #: the f32 grouped-matmul case cuts F by this factor (weights 0.94 GB)
@@ -397,20 +418,27 @@ def ssd_case(B: int, S: int, Din: int, N: int, chunk: int, x_dtype) -> dict:
 
     def plain():
         return ssd_scan_ref(x, dt, A, Bm, Cm)
-    err = check_close(tag, kernel(), plain(), torch.float32, tol=SSD_TOL)
+    got = kernel()
+    err = check_close(tag, got, plain(), torch.float32, tol=SSD_TOL)
+    err_order = check_close(f"{tag} (kernel order)", got,
+                            ssd_scan_kernel_order(x, dt, A, Bm, Cm),
+                            torch.float32, tol=SSD_ORDER_TOL)
+    del got
     elt = ELT[x_dtype]
     nbytes = (x.numel() * elt + dt.numel() * 4 + A.numel() * 4
               + 2 * Bm.numel() * elt + 4 * x.numel())
     ops = float(B * S * Din * (7 * N + 1))
     b, by = bound_ms(nbytes, ops, torch.float32)
-    rec = {"max_abs_err": err, "ms": time_ms(kernel, iters=20),
+    rec = {"max_abs_err": err, "max_abs_err_kernel_order": err_order,
+           "ms": time_ms(kernel, iters=20),
            "plain_ms": time_ms(plain, iters=3, warmup=1), "library_ms": None,
            "library": "none: no single PyTorch call computes the selective "
                       "scan",
            "bound_ms": b, "bound_by": by}
     # printed only: exp can also run on the FMA units, so this is no bound
     mufu_ms = B * S * Din * N / MUFU_PER_S * 1e3
-    print(f"[kernels] {tag}: err {err:.3g}, kernel {rec['ms']:.4f} ms, plain "
+    print(f"[kernels] {tag}: err {err:.3g} ({err_order:.3g} against the "
+          f"kernel order), kernel {rec['ms']:.4f} ms, plain "
           f"{rec['plain_ms']:.4f} ms, no library call, bound {b:.3g} ms "
           f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP f32), "
           f"{B * S * Din * N / 1e6:.0f} M exp need {mufu_ms:.3g} ms "
@@ -588,15 +616,19 @@ class Routing:
             moe_mod.router_topk = self._orig
 
 
-def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5
-                  ) -> tuple[dict, list]:
-    """Launch counts of one prefill, and the expert ids each MoE layer's
-    router chose in it."""
-    cfg = lm_k.cfg
+def prefill_batch(cfg) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
-                           generator=gen, device=DEVICE)
-    batch = {"tokens": tokens}
+    return {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                    generator=gen, device=DEVICE)}
+
+
+def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5,
+                  used_earlier: float | None = None) -> tuple[dict, list]:
+    """Launch counts of one prefill, and the expert ids each MoE layer's
+    router chose in it.  ``used_earlier``: the share of the tolerance an
+    earlier kernel used in this check, printed beside this run's."""
+    cfg = lm_k.cfg
+    batch = prefill_batch(cfg)
     torch.cuda.reset_peak_memory_stats()
     routing = Routing()
     reset_counts()
@@ -640,13 +672,115 @@ def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5
     agree = (g.argmax(-1) == w.argmax(-1)).float().mean().item()
     # the largest share of the allowed difference that any logit uses
     used = ((g - w).abs() / (0.25 + 0.1 * w.abs())).max().item()
+    earlier = ("" if used_earlier is None else
+               f"; {used_earlier:.2f} with the earlier scan kernel")
     print(f"[prefill] {cfg.name} B={PREFILL_B} S={PREFILL_S}: logits vs "
           f"plain max abs err {err:.4f} (max |logit| "
-          f"{w.abs().max().item():.3f}, {used:.2f} of the tolerance used), "
+          f"{w.abs().max().item():.3f}, {used:.2f} of the tolerance used"
+          f"{earlier}), "
           f"argmax agreement {agree:.2f}; launches {counts}; "
           f"{ms_k:.2f} ms with kernels, {ms_p:.2f} ms plain; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB{moe_note}")
     return counts, routing.ids
+
+
+#: symbols of the hand-written kernels (``csrc/*.cu``), by wrapper
+KERNEL_SYMBOLS = {
+    "rmsnorm": ("rmsnorm_kernel",),
+    "flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
+    "mlstm_chunk": ("mlstm_state_kernel", "mlstm_out_kernel"),
+    "ssd_scan": ("ssd_scan_kernel",),
+    "moe_gmm": ("gmm_bf16_wgmma_kernel", "gmm_bf16_decode_kernel",
+                "gmm_zero_rows_kernel", "gmm_f32_kernel")}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_category(name: str, cat: str) -> str:
+    """A device operation's category.  Copies come before the elementwise
+    kernels, since PyTorch's copy and cast kernels are elementwise
+    templates (``direct_copy_kernel_cuda`` inside
+    ``vectorized_elementwise_kernel``)."""
+    for kernel, symbols in KERNEL_SYMBOLS.items():
+        if any(sym in name for sym in symbols):
+            return kernel
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cublas")):
+        return "cublas_gemm"
+    if cat != "kernel" or "copy" in low or "cast" in low:
+        return "copy_cast"
+    if any(k in low for k in ("elementwise", "vectorized", "reduce")):
+        return "elementwise_reduce"
+    return "other"
+
+
+def _union_us(spans: list, lo: float, hi: float) -> float:
+    busy, end = 0.0, lo
+    for a, b in sorted(spans):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy
+
+
+def phase_prefill_breakdown(lm_k: LM, params) -> dict:
+    """One more prefill with kernels under ``torch.profiler``: where the
+    device time goes, and how much of the window the device is idle.
+    The window is the host's span of the call and its synchronise, so
+    the profiler's own host cost (CPU activity is traced) counts as
+    idle time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cfg = lm_k.cfg
+    batch = prefill_batch(cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("prefill_window"):
+            lm_k.prefill(params, batch)
+            torch.cuda.synchronize()
+    path = ROOT / "build" / "traces" / f"{cfg.name}_prefill.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    win = [e for e in events if e.get("name") == "prefill_window"
+           and e.get("cat") == "user_annotation"]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
+    if len(win) != 1 or not dev:
+        raise AssertionError(f"profiler trace {path}: {len(win)} windows, "
+                             f"{len(dev)} device operations")
+    lo, hi = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+    dev = [e for e in dev if lo <= e["ts"] < hi]
+    busy = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in dev], lo, hi)
+    cats: dict = {}
+    ops: dict = {}
+
+    def add(table, key, ms):
+        ms0, n0 = table.get(key, (0.0, 0))
+        table[key] = [ms0 + ms, n0 + 1]
+    for e in dev:
+        add(cats, device_category(e["name"], e["cat"]), e["dur"] / 1e3)
+        add(ops, e["name"], e["dur"] / 1e3)
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
+    rec = {"window_ms": (hi - lo) / 1e3,
+           "device_ms": sum(e["dur"] for e in dev) / 1e3,
+           "device_ops": len(dev), "busy": busy / (hi - lo),
+           "idle": 1 - busy / (hi - lo),
+           "by_category_ms_count": dict(sorted(cats.items(),
+                                               key=lambda kv: -kv[1][0])),
+           "top10_ms_count": [[name[:160], ms, n] for name, (ms, n) in top]}
+    tag = f"[prefill-breakdown] {cfg.name} B={PREFILL_B} S={PREFILL_S}"
+    print(f"{tag}: window {rec['window_ms']:.2f} ms (host span of the "
+          f"profiled call), device time {rec['device_ms']:.2f} ms in "
+          f"{len(dev)} operations, busy {rec['busy']:.3f}, idle "
+          f"{rec['idle']:.3f}")
+    print(f"{tag}: by category (ms, count): " + ", ".join(
+        f"{c} {ms:.3f} ({n})" for c, (ms, n) in
+        rec["by_category_ms_count"].items()))
+    for i, (name, ms, n) in enumerate(rec["top10_ms_count"]):
+        print(f"{tag}: top {i + 1}: {ms:.3f} ms ({n}) {name[:120]}")
+    print(f"{tag}: {json.dumps(rec)}")
+    return rec
 
 
 def _first_divergence(streamed: list[int], offline: list[int]) -> int | None:
@@ -808,7 +942,9 @@ def main() -> int:
         del hlm_k, hlm_p, hparams
         torch.cuda.empty_cache()
     jcfg, jlm_k, jlm_p, jparams = build_model(JARCH, n_layers=J_LAYERS)
-    j_prefill, prefill_ids = phase_prefill(jlm_k, jlm_p, jparams, iters=2)
+    j_prefill, prefill_ids = phase_prefill(jlm_k, jlm_p, jparams, iters=2,
+                                           used_earlier=J_TOL_USED_EARLIER)
+    phase_prefill_breakdown(jlm_k, jparams)
     j_serve, decode_ids = phase_serve_static(jlm_k, jparams, device)
     paths += [j_prefill, j_serve]
     del jlm_k, jlm_p, jparams
@@ -881,6 +1017,8 @@ def main() -> int:
                     f"{jcfg.mamba.expand * jcfg.d_model} N="
                     f"{jcfg.mamba.d_state}, x bf16, dt f32, y f32 (jamba "
                     "prefill)"),
+             f32=sub(("ssd", torch.float32), "the same, x f32",
+                     ("max_abs_err_kernel_order",)),
              **cases[("ssd", torch.bfloat16)]),
         dict(name="moe_gmm", route="cuda",
              source="src/repro_torch/csrc/moe_gmm.cu",

@@ -10,32 +10,68 @@
 // The TPU kernel walks the sequence as a sequential ("arbitrary") grid
 // axis of chunks and carries the (d_block, N) state in VMEM scratch from
 // one chunk to the next.  Blocks on this card run in no order, so the
-// carry stays in registers instead: a group of N/4 neighbouring lanes owns
-// one (b, d) pair, each lane four of its N states and the matching four
-// values of A, and the group walks the whole sequence.  Nothing crosses
+// carry stays in registers instead: one lane owns one (b, d) channel and
+// all N of its states, and walks the whole sequence.  Nothing crosses
 // blocks, and the output does not depend on the chunking the caller
-// names, which only selects the reference's shape checks.  The partial
-// sums of y meet through warp shuffles.
+// names, which only selects the reference's shape checks.
 //
-// Bound on this card: bytes, then the special-function unit.  At B=4,
-// S=1024, Din=8192, N=16 (jamba prefill) the call reads x (bf16) and dt
-// (f32) and writes y (f32): ~336 MB, 0.100 ms at 3.35 TB/s; it also needs
-// B*S*Din*N = 537 M exponentials, which the MUFU (16 per clock per SM,
-// 132 SMs, ~1.98 GHz) computes in no less than ~0.13 ms.  The exponential
-// is one ex2.approx with log2(e) folded into A.  Only B*Din/P blocks of
-// four warps exist (1024 at the jamba shape, ~8 per SM), so each block
-// keeps the next chunk's x, dt, B and C rows in flight with cp.async
-// while it computes the current one from shared memory; a first version
-// that loaded every step's values from device memory waited one memory
-// round trip per step and took 2.3x as long.
+// What bounds it, at B=4, S=1024, Din=8192, N=16 (jamba prefill; x bf16,
+// dt f32, y f32):
+// - bytes: x and dt read once and y written once, ~336 MB, 0.100 ms at
+//   3.35 TB/s;
+// - the special-function unit: B*S*Din*N = 537 M exponentials, which the
+//   MUFU (16 per clock per SM, 132 SMs, 1.98 GHz) computes in no less
+//   than 0.128 ms;
+// - issue: a sub-partition issues one warp instruction per clock.  Each
+//   state-step needs five (dt*a, the exponential, dx*b, the h FMA, the y
+//   FMA), and each step of a lane about 20 more (its x, dt, B and C loads
+//   from shared memory, dt*x, the store, its share of the copies).
+//
+// What the design does about each:
+// - A lane holds all N states of its channel, so its loads, dt*x and the
+//   store are paid once per N states (the kernel this one replaced gave
+//   each lane 4 states and paid them, and a two-shuffle reduction of y,
+//   once per 4).  No shuffle is left, and a warp stores 128 contiguous
+//   bytes of y per step.  Only B*Din/32 warps exist (1,024 at jamba's
+//   shape, ~2 per sub-partition): latency is hidden by the N independent
+//   state chains of each lane.  Two lanes per channel (twice the warps,
+//   the per-step work paid once per 8 states, y reduced by shuffles)
+//   measured slower at every share below, and were taken out.
+// - Each warp stages its own 32 x and dt columns and the B and C rows in
+//   a ring of 4 chunks of kSteps steps in shared memory, with cp.async 3
+//   chunks ahead.  No warp waits on another: a __syncwarp per chunk is
+//   the only barrier.  kSteps is a compile-time constant, so the step
+//   loop unrolls and the exponentials of later steps issue ahead of the
+//   h chain (one FMA deep per step).
+// - The exponential is 2^(dt * A*log2(e)).  The last state of each half
+//   of a channel's 16 computes it on the FMA pipe (exp2_poly: a degree-5
+//   polynomial and an exponent add, ~11 instructions), the other 14 with
+//   ex2.approx.ftz on the MUFU: at 14 of 16 the MUFU's 112 clocks per
+//   warp-step sit under the ~130 issue slots, where all 16 on the MUFU
+//   would need 128 (kPolyShare; scripts/ssd_probe.py times 0, 2 and 4
+//   of 16 in copies of this source).
+// - Order of accumulation: y = fma(h[N-1], C[N-1], ... fma(h[1], C[1],
+//   h[0] * C[0])), n in order.  ref.ssd_scan_kernel_order mirrors this
+//   order and the states given to exp2_poly in plain PyTorch.
+// On an H100 at jamba's shape it takes ~0.18 ms, 55% of the byte bound:
+// a sub-partition's two warps issue ~74% of the clocks (one warp alone
+// takes 0.117 ms, however few channels there are).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;              // per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kSteps = 16;             // steps per staged chunk
+constexpr int kStages = 4;             // chunks in a warp's ring
+// Exponentials on the FMA pipe per 32 states: N * kPolyShare / 32 in each
+// half of a channel's states, its last ones (1 of 8 at N = 16, none at
+// N = 8 or 4).  ref.POLY_SHARE holds the same number.
+constexpr int kPolyShare = 2;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxDevices = 64;      // the launch path's per-device flags
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -48,126 +84,202 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// 2^z on the FMA pipe.  z is clamped to [-127, 127] and split as j + f,
+// j = rint(z), f in [-0.5, 0.5]; 2^f = 1 + f*q(f), q the degree-4 minimax
+// fit of the relative error on [-0.5, 0.5], evaluated by Horner in f32
+// (largest relative error 1.90e-7 over every f32 f, against 6.8e-8 for
+// the fit in exact arithmetic); j is then added into the exponent bits.
+// 2^f lies in [0.707, 1.415] and is 1 exactly at f = 0, so the exponent
+// never wraps: for z in [-126, 127] the result is a normal float, for z
+// below -126 it lies in [0, 2^-126), and it is exactly 0 for z <= -127.
+__device__ __forceinline__ float exp2_poly(float z) {
+  z = fminf(fmaxf(z, -127.f), 127.f);
+  // 1.5 * 2^23: the sum's last place is 1, so it rounds z to j, which it
+  // holds in its low mantissa bits: its bits are 0x4B400000 + j
+  const float t = z + 12582912.f;
+  const float f = z - (t - 12582912.f);
+  float q = 0.0013202981790527701f;
+  q = fmaf(q, f, 0.009674952365458012f);
+  q = fmaf(q, f, 0.05551047623157501f);
+  q = fmaf(q, f, 0.24022187292575836f);
+  q = fmaf(q, f, 0.6931467056274414f);
+  const float p = fmaf(q, f, 1.f);
+  // (0x4B400000 + j) << 23 is j << 23 modulo 2^32
+  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(t) << 23));
+}
+
 struct Strides {  // element strides of (B, S) for one (B, S, *) tensor
   long long b, s;
 };
 
-// cp.async of 16 bytes into shared memory; src_bytes = 0 fills zeros.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// N states per (b, d) pair, four per lane: G = N / 4 lanes per pair,
-// P = 128 / G pairs per block.  The sequence goes in chunks of L steps
-// (L * P = 1024) that cp.async stages in shared memory two deep: the x
-// and dt rows of the block's P channels and the B and C rows, which all
-// of its pairs share.
+// cp.async of 16 bytes to a shared address; pred false reads nothing and
+// fills zeros.  .cg (L2 only) for x and dt, read once; .ca for the B and
+// C rows, which every warp of the batch row reads.
+__device__ __forceinline__ void cp_async_cg(unsigned smem, const void* gmem,
+                                            bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_ca(unsigned smem, const void* gmem,
+                                            bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
+}
+
+// One warp's ring: kStages chunks of kSteps rows of its 32 channels' x and
+// dt and of the batch row's B and C.
+template <int N, typename TX, typename TD>
+struct Ring {
+  TX x[kStages][kSteps][32];
+  TD dt[kStages][kSteps][32];
+  float b[kStages][kSteps][N];
+  float c[kStages][kSteps][N];
+};
+
 template <int N, typename TX, typename TD>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const TX* __restrict__ x, const TD* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, float* __restrict__ y, int S,
                 int Din, Strides sx, Strides sdt) {
-  constexpr int G = N / 4;
-  constexpr int P = kThreads / G;
-  constexpr int L = 1024 / P;
-  constexpr int kXc = P * sizeof(TX) / 16;   // 16-byte chunks per x row
-  constexpr int kDc = P * sizeof(TD) / 16;
-  constexpr int kBc = L * N / 4;             // 16-byte chunks of B rows
-  __shared__ __align__(16) TX xs[2][L][P];
-  __shared__ __align__(16) TD ds[2][L][P];
-  __shared__ __align__(16) float bs[2][L][N];
-  __shared__ __align__(16) float cs[2][L][N];
-
-  const int tid = threadIdx.x;
-  const int sub = tid % G, pair = tid / G;
-  const int d0 = blockIdx.x * P;
-  const int d = d0 + pair;
+  constexpr int kHalf = N / 2;
+  constexpr int kPoly = N * kPolyShare / 32;  // per half, its last
+  constexpr int kXe = 16 / sizeof(TX), kDe = 16 / sizeof(TD);  // per 16 B
+  constexpr int kXc = 32 / kXe, kDc = 32 / kDe;  // 16-byte chunks per row
+  constexpr int kBc = N / 4;
+  // steps unrolled: ptxas spaces the MUFU instructions evenly with the
+  // whole chunk unrolled for bf16 x, and clusters them for f32 x unless
+  // the unroll stops at 8 (scripts/ssd_probe.py times both)
+  constexpr int kUnroll = sizeof(TX) == 4 ? 8 : kSteps;
+  static_assert(kPoly <= kHalf && N % 4 == 0, "layout");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  Ring<N, TX, TD>& ring = reinterpret_cast<Ring<N, TX, TD>*>(smem)[warp];
+  const int d0 = (blockIdx.x * kWarps + warp) * 32;
+  if (d0 >= Din) return;   // the whole warp: no block-wide barrier follows
   const int b = blockIdx.y;
-  const bool valid = d < Din;
+  const int d = d0 + lane;
+  const bool valid = d < Din;   // Din % 8 == 0: 16-byte chunks are whole
 
-  float a2[4], h[4];
-  const float4 av = valid
-      ? *reinterpret_cast<const float4*>(A + static_cast<size_t>(d) * N +
-                                         sub * 4)
-      : make_float4(0.f, 0.f, 0.f, 0.f);
-  a2[0] = av.x * kLog2e; a2[1] = av.y * kLog2e;
-  a2[2] = av.z * kLog2e; a2[3] = av.w * kLog2e;
+  float a2[N], h[N];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = 0.f;
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 av = valid
+        ? reinterpret_cast<const float4*>(A + static_cast<size_t>(d) * N)[i]
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    a2[4 * i] = av.x * kLog2e;     a2[4 * i + 1] = av.y * kLog2e;
+    a2[4 * i + 2] = av.z * kLog2e; a2[4 * i + 3] = av.w * kLog2e;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) h[i] = 0.f;
 
   const TX* xb = x + b * sx.b + d0;
   const TD* db = dt + b * sdt.b + d0;
   const float* bb = Bm + static_cast<size_t>(b) * S * N;
   const float* cb = Cm + static_cast<size_t>(b) * S * N;
-  float* yp = y + static_cast<size_t>(b) * S * Din + d;
 
-  auto load = [&](int st, int t0) {
-    for (int i = tid; i < L * kXc; i += kThreads) {
-      const int r = i / kXc, c = (i % kXc) * (16 / sizeof(TX));
+  // Stage chunk ci: each lane issues its share of the 16-byte copies.
+  // Rows past S are zero-filled (dt = 0 leaves h as it is, and their y
+  // is not stored), as are columns past Din.
+  auto load = [&](int ci) {
+    const int st = ci % kStages, t0 = ci * kSteps;
+#pragma unroll
+    for (int i = lane; i < kSteps * kXc; i += 32) {
+      const int r = i / kXc, c = (i % kXc) * kXe;
       const bool ok = t0 + r < S && d0 + c < Din;
-      cp_async16(&xs[st][r][c], ok ? xb + (t0 + r) * sx.s + c : xb, ok);
+      cp_async_cg(smem_addr(&ring.x[st][r][c]),
+                  ok ? xb + (t0 + r) * sx.s + c : xb, ok);
     }
-    for (int i = tid; i < L * kDc; i += kThreads) {
-      const int r = i / kDc, c = (i % kDc) * (16 / sizeof(TD));
+#pragma unroll
+    for (int i = lane; i < kSteps * kDc; i += 32) {
+      const int r = i / kDc, c = (i % kDc) * kDe;
       const bool ok = t0 + r < S && d0 + c < Din;
-      cp_async16(&ds[st][r][c], ok ? db + (t0 + r) * sdt.s + c : db, ok);
+      cp_async_cg(smem_addr(&ring.dt[st][r][c]),
+                  ok ? db + (t0 + r) * sdt.s + c : db, ok);
     }
-    for (int i = tid; i < 2 * kBc; i += kThreads) {
-      const int j = i % kBc, r = j / (N / 4), c = (j % (N / 4)) * 4;
-      const bool ok = t0 + r < S;
-      const float* src = (i < kBc ? bb : cb) + static_cast<size_t>(t0 + r) * N;
-      float* dst = i < kBc ? &bs[st][r][c] : &cs[st][r][c];
-      cp_async16(dst, ok ? src + c : bb, ok);
+#pragma unroll
+    for (int i = lane; i < 2 * kSteps * kBc; i += 32) {
+      const int j = i % (kSteps * kBc), r = j / kBc, c = (j % kBc) * 4;
+      const bool ok = t0 + r < S, is_b = i < kSteps * kBc;
+      const float* src = (is_b ? bb : cb) + static_cast<size_t>(t0 + r) * N;
+      cp_async_ca(smem_addr(is_b ? &ring.b[st][r][c] : &ring.c[st][r][c]),
+                  ok ? src + c : bb, ok);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
   };
 
-  const int chunks = (S + L - 1) / L;
-  load(0, 0);
+  const int chunks = (S + kSteps - 1) / kSteps;
+#pragma unroll
+  for (int ci = 0; ci < kStages - 1; ++ci) {
+    if (ci < chunks) load(ci);
+    cp_async_commit();   // empty groups keep the count uniform
+  }
+  float* yp = y + static_cast<size_t>(b) * S * Din + d;
   for (int ci = 0; ci < chunks; ++ci) {
-    const int st = ci & 1, t0 = ci * L;
-    if (ci + 1 < chunks) {
-      load(st ^ 1, t0 + L);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const int steps = min(L, S - t0);
-    for (int r = 0; r < steps; ++r) {
-      const float xv = to_f(xs[st][r][pair]);
-      const float dv = to_f(ds[st][r][pair]);
-      const float4 bv = *reinterpret_cast<const float4*>(&bs[st][r][sub * 4]);
-      const float4 cv = *reinterpret_cast<const float4*>(&cs[st][r][sub * 4]);
-      const float bx[4] = {bv.x, bv.y, bv.z, bv.w};
-      const float cx[4] = {cv.x, cv.y, cv.z, cv.w};
-      const float dx = dv * xv;
+    cp_async_wait<kStages - 2>();   // this lane's copies of chunk ci
+    __syncwarp();   // ... and every lane's; chunk ci - 1 is read by all
+    if (ci + kStages - 1 < chunks) load(ci + kStages - 1);
+    cp_async_commit();
+    const int st = ci % kStages, t0 = ci * kSteps, rem = S - t0;
+#pragma unroll kUnroll
+    for (int r = 0; r < kSteps; ++r) {
+      const float dv = to_f(ring.dt[st][r][lane]);
+      const float dx = dv * to_f(ring.x[st][r][lane]);
+      float bv[N], cv[N];
+#pragma unroll
+      for (int i = 0; i < N / 4; ++i) {
+        const float4 b4 = reinterpret_cast<const float4*>(ring.b[st][r])[i];
+        const float4 c4 = reinterpret_cast<const float4*>(ring.c[st][r])[i];
+        bv[4 * i] = b4.x; bv[4 * i + 1] = b4.y;
+        bv[4 * i + 2] = b4.z; bv[4 * i + 3] = b4.w;
+        cv[4 * i] = c4.x; cv[4 * i + 1] = c4.y;
+        cv[4 * i + 2] = c4.z; cv[4 * i + 3] = c4.w;
+      }
+      // h[n]*C[n] summed in order by fused multiply-adds
       float acc = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        h[i] = fmaf(ex2(dv * a2[i]), h[i], dx * bx[i]);
-        acc = fmaf(h[i], cx[i], acc);
+      for (int i = 0; i < N; ++i) {
+        const float z = dv * a2[i];
+        const float e = i % kHalf < kHalf - kPoly ? ex2(z) : exp2_poly(z);
+        h[i] = fmaf(e, h[i], dx * bv[i]);
+        acc = i == 0 ? h[0] * cv[0] : fmaf(h[i], cv[i], acc);
       }
-#pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (valid && sub == 0) yp[static_cast<size_t>(t0 + r) * Din] = acc;
+      if (valid && r < rem) yp[static_cast<size_t>(t0 + r) * Din] = acc;
     }
-    __syncthreads();   // the next load overwrites this stage
   }
+  cp_async_wait<0>();
 }
 
 template <int N, typename TX, typename TD>
 int launch(const void* x, const void* dt, const void* A, const void* Bm,
            const void* Cm, void* y, int B, int S, int Din, Strides sx,
            Strides sdt, cudaStream_t stream) {
-  constexpr int kPairs = kThreads / (N / 4);
-  const dim3 grid((Din + kPairs - 1) / kPairs, B);
-  ssd_scan_kernel<N, TX, TD><<<grid, kThreads, 0, stream>>>(
+  constexpr int kSmem = kWarps * sizeof(Ring<N, TX, TD>);
+  auto kernel = ssd_scan_kernel<N, TX, TD>;
+  // above 48 KB only after this, once per device and instantiation
+  if constexpr (kSmem > 48 * 1024) {
+    static bool smem_set[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
+    if (err == cudaSuccess && !smem_set[dev])
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = true;
+  }
+  const dim3 grid((Din + kWarps * 32 - 1) / (kWarps * 32), B);
+  kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const TX*>(x), static_cast<const TD*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(Bm),
       static_cast<const float*>(Cm), static_cast<float*>(y), S, Din, sx,
@@ -196,9 +308,9 @@ int by_dtype(const void* x, const void* dt, const void* A, const void* Bm,
 
 // x, dt: (B, S, Din) with unit stride along Din and element strides
 // (x_b, x_s), (dt_b, dt_s); A: (Din, N) contiguous f32; Bm, Cm: (B, S, N)
-// contiguous f32; y: (B, S, Din) contiguous f32.  N is 4, 8 or 16.
-// x_dtype, dt_dtype: 0 = bfloat16, 1 = float32.  Returns the cudaError_t
-// of the launch.
+// contiguous f32; y: (B, S, Din) contiguous f32.  N is 4, 8 or 16, Din a
+// multiple of 8.  x_dtype, dt_dtype: 0 = bfloat16, 1 = float32.  Returns
+// the cudaError_t of the launch.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* Bm, const void* Cm, void* y,
                                int B, int S, int Din, int N, long long x_b,

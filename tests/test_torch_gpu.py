@@ -20,7 +20,8 @@ from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 from repro_torch.kernels.rmsnorm import ops as trms
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd_scan import ops as tssd
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_scan_kernel_order,
+                                              ssd_scan_ref)
 from repro_torch.models.lm import LM
 from torch_parity import DTYPES, cuda, f32, tol, torch_dtype  # noqa: F401
 
@@ -270,12 +271,19 @@ def test_xlstm_prefill_runs_the_kernels(cuda):
 
 #: the reference's tolerance for the selective scan (``test_kernels.py``)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+# against the kernel-order mirror: just above what ex2.approx against
+# torch.exp2 (2 ulp a step) can reach through h over a few hundred steps
+SSD_ORDER_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _ssd_inputs(gen, B, S, Din, N, x_dtype, dev):
+def _ssd_inputs(gen, B, S, Din, N, x_dtype, dev, dt_range=(0.01, 0.2),
+                a_range=(0.5, 2.0)):
+    """dt uniform in ``dt_range``, -A in ``a_range``."""
     x = torch.randn(B, S, Din, generator=gen, device=dev).to(x_dtype)
-    dt = torch.rand(B, S, Din, generator=gen, device=dev) * 0.19 + 0.01
-    A = -(torch.rand(Din, N, generator=gen, device=dev) * 1.5 + 0.5)
+    lo, hi = dt_range
+    dt = torch.rand(B, S, Din, generator=gen, device=dev) * (hi - lo) + lo
+    lo, hi = a_range
+    A = -(torch.rand(Din, N, generator=gen, device=dev) * (hi - lo) + lo)
     Bm = torch.randn(B, S, N, generator=gen, device=dev)
     Cm = torch.randn(B, S, N, generator=gen, device=dev)
     return x, dt, A, Bm, Cm
@@ -300,6 +308,37 @@ def test_ssd_scan_kernel(cuda, x_dtype, B, S, Din, N, chunk):
     assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, Din)
     np.testing.assert_allclose(f32(got), f32(ssd_scan_ref(x, dt, A, Bm, Cm)),
                                **SSD_TOL)
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,S,Din,N,dt_range,a_range", [
+    # exp(dt·A) close to 1
+    (2, 256, 1024, 16, (1e-4, 1e-3), (0.5, 2.0)),
+    # dt·A·log2(e) below -126 (the exponential underflows) for about half
+    # of the states, above it for the rest
+    (2, 96, 256, 16, (0.5, 2.0), (1.0, 200.0)),
+    # N = 4 and 8: a lane holds all of them
+    (2, 256, 1024, 4, (0.01, 0.2), (0.5, 2.0)),
+    (2, 256, 1024, 8, (0.01, 0.2), (0.5, 2.0)),
+    # Din: one 128-channel block and 8 channels of the next
+    (3, 50, 136, 16, (0.01, 0.2), (0.5, 2.0)),
+    # one warp, 8 of its lanes live
+    (1, 33, 8, 8, (1e-4, 1e-3), (0.5, 2.0)),
+])
+def test_ssd_scan_kernel_edges(cuda, x_dtype, B, S, Din, N, dt_range,
+                               a_range):
+    """Against the plain recurrence at the reference's 1e-4, and against
+    its kernel-order mirror (software exponential on the same states) at
+    1e-5, which pins the kernel's order and arithmetic."""
+    gen = torch.Generator(device=cuda).manual_seed(B * S + Din + N)
+    t = _ssd_inputs(gen, B, S, Din, N, torch_dtype(x_dtype), cuda, dt_range,
+                    a_range)
+    got = tssd.ssd_scan(*t, chunk=S, d_block=Din)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(f32(got), f32(ssd_scan_ref(*t)), **SSD_TOL)
+    np.testing.assert_allclose(f32(got), f32(ssd_scan_kernel_order(*t)),
+                               **SSD_ORDER_TOL)
 
 
 def test_ssd_scan_kernel_reads_strided_views(cuda):

@@ -9,6 +9,9 @@ params bridged in and is compared with the reference run op by op
 reference's Pallas selective scan runs in interpret mode, as
 ``test_kernels.py`` runs it.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +25,10 @@ from repro.models.lm import LM as JLM
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.kernels.ssd_scan import ops as tssd
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.kernels.ssd_scan.ref import (exp2_poly,
+                                              ssd_scan_kernel_order,
+                                              ssd_scan_ref)
 from repro_torch.models import ssm as tssm
 from torch_parity import both, f32, numpy_tree, tol
 
@@ -33,12 +39,12 @@ def _noop(x, dims, site=None):
     return x
 
 
-def _scan_inputs(B, S, Din, N, seed):
+def _scan_inputs(B, S, Din, N, seed, dt_range=(0.01, 0.2)):
     """x, dt, A, B, C as (jax, torch) f32 pairs, at the reference's
-    kernel-test distributions."""
+    kernel-test distributions (dt uniform in ``dt_range``)."""
     rng = np.random.default_rng(seed)
     arrs = [rng.normal(size=(B, S, Din)),
-            rng.uniform(0.01, 0.2, size=(B, S, Din)),
+            rng.uniform(*dt_range, size=(B, S, Din)),
             -rng.uniform(0.5, 2.0, size=(Din, N)),
             rng.normal(size=(B, S, N)), rng.normal(size=(B, S, N))]
     return zip(*(both(a, "float32") for a in arrs))
@@ -123,6 +129,63 @@ def test_ssd_scan_matches_pallas(B, S, Din, N, chunk, dblk):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(f32(got), f32(want), **SCAN_TOL)
     assert torch.equal(got, ssd_scan_ref(*t))
+
+
+def test_exp2_poly_relative_error():
+    """The kernel's software exponential within 3e-7 (about 2.5 f32
+    ulps) of 2^z over [-126, 0]; every f32 in [-0.5, 0.5] measures at
+    most 1.90e-7 (the minimax fit itself: 6.8e-8)."""
+    rng = np.random.default_rng(0)
+    z = np.concatenate([np.linspace(-126, 0, 1_000_001),
+                        rng.uniform(-126, 0, 500_000),
+                        rng.uniform(-0.5, 0.5, 500_000)]).astype(np.float32)
+    got = exp2_poly(torch.from_numpy(z)).numpy().astype(np.float64)
+    want = np.exp2(z.astype(np.float64))
+    assert np.max(np.abs(got - want) / want) < 3e-7
+
+
+def test_exp2_poly_never_wraps():
+    """Below -126 the result lies in [0, 2^-126) and is 0 from -127 down:
+    no inf, NaN or wrapped exponent; at 0 it is exactly 1."""
+    z = torch.cat([torch.linspace(-1000, -126, 200_001),
+                   torch.tensor([-126.5, -127.0, -127.5, -1e30,
+                                 -float("inf")])])
+    got = exp2_poly(z)
+    assert torch.isfinite(got).all()
+    assert (got >= 0).all() and (got <= 2.0 ** -126).all()
+    assert (got[z <= -127] == 0).all()
+    assert exp2_poly(torch.zeros(3)).tolist() == [1.0, 1.0, 1.0]
+
+
+def test_kernel_order_mirrors_the_kernel_source():
+    """The mirror's share of software exponentials and its polynomial
+    are the ones ``csrc/ssd_scan.cu`` compiles."""
+    src = (Path(ssd_ref.__file__).resolve().parents[2] / "csrc"
+           / "ssd_scan.cu").read_text()
+    share = re.search(r"constexpr int kPolyShare = (\d+);", src)
+    assert share and int(share.group(1)) == ssd_ref.POLY_SHARE
+    body = src[src.index("float exp2_poly(float z)"):]
+    body = body[:body.index("\n}\n")]
+    coeffs = [float(c) for c in re.findall(r"(\d\.\d+)f", body)]
+    assert coeffs == list(ssd_ref.EXP2_COEFFS[::-1])
+
+
+@pytest.mark.parametrize("dt_range", [(0.01, 0.2), (1e-4, 1e-3)])
+@pytest.mark.parametrize("B,S,Din,N,chunk,dblk", [
+    (2, 64, 16, 4, 16, 8),
+    (1, 128, 32, 8, 32, 32),
+    (2, 96, 24, 16, 48, 12),
+])
+def test_ssd_scan_kernel_order_matches_pallas(B, S, Din, N, chunk, dblk,
+                                              dt_range):
+    """The kernel's order and software exponential against the Pallas
+    kernel at its test shapes; dt in [1e-4, 1e-3] puts exp(dt·A) within
+    0.2% of 1, where an error in it is amplified most in h."""
+    j, t = _scan_inputs(B, S, Din, N, B * S + Din, dt_range)
+    want = jssd.ssd_scan(*j, chunk=chunk, d_block=dblk)
+    got = ssd_scan_kernel_order(*t)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, S, Din)
+    np.testing.assert_allclose(f32(got), f32(want), **SCAN_TOL)
 
 
 def test_ssd_scan_refuses_what_the_reference_asserts():
