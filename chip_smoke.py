@@ -44,13 +44,31 @@ head_dim 120, window 4096).  On the card:
    S=1024 against the plain path on the card (atol 0.25, rtol 0.1); the
    flash attention kernel must launch 30 times and the RMSNorm kernel 61;
 5. smollm serve: the ``ContinuousBatcher`` with 8 slots over 16 requests
-   (prompts 16-256, 32-128 new tokens, greedy, seed 0); every request
-   completes, two are re-decoded with ``decode_offline`` and must match
-   token for token (a first divergence is accepted only where the offline
-   top-2 logit margin is under 0.05), and the RMSNorm kernel launches at
-   least 61 times per decode step;
+   (prompts 16-256, 32-128 new tokens, greedy, seed 0), twice: eager
+   (``graphs=False``), then on CUDA graphs (``launch/graphs.py``: the
+   slot batch and one graph per prefill group width, built by an
+   untimed warm-up pass over the same trace).  First the graph of the
+   slot batch and the eager ``decode_step`` take one step from zero
+   caches on the same inputs, and their largest logits difference is
+   printed.  In each run every request completes and the RMSNorm kernel
+   launches at least 61 times per decode step; the graph run's launch
+   counts must equal the eager run's, and its tokens the eager run's
+   (a first divergence is accepted only where the eager run's top-2
+   logit margin at that token is under 0.05); two requests of the graph
+   run are re-decoded with ``decode_offline`` and must match token for
+   token under the same rule (with the offline margin).  Both runs print
+   tok/s,
+   p50/p99, ms per decode step, prefill s and peak memory, the graph run
+   also the graphs captured and their capture seconds.  Then one decode
+   step of the slot batch, eager and replayed, under ``torch.profiler``:
+   the window and the device's busy and idle share of it, and the
+   device time over the step's unprofiled host-clock time
+   (``[decode-profile]``);
 6. xlstm prefill: as 4, at B=4, S=1024; the mLSTM kernel must launch 10
    times and the RMSNorm kernel 13 (12 ``norm1`` and ``final_norm``);
+   the prefill with the sLSTM recurrence replayed from its CUDA graphs
+   (the default) is also timed against the host loop (``LM(...,
+   graphs=False)``), with their logits difference;
 7. xlstm serve: as 5, over 8 requests (prompts 16-128, 16-64 new
    tokens); the RMSNorm kernel launches at least 13 times per step;
 8. stablelm-3b and h2o-danube-3-4b prefill: as 4, at 2 layers each;
@@ -70,11 +88,14 @@ head_dim 120, window 4096).  On the card:
    reads it by launching PyTorch operator);
 10. jamba serve: ``run_static`` (MoE configs serve on the static path)
    with 8 slots over 8 requests (prompts 16-128, 16-64 new tokens,
-   greedy); every request completes, the grouped matmul launches at
-   least 16 times and RMSNorm 33 per decode step, and each request whose
-   prompt is its wave's longest (``run_static`` pads the others with
-   token 0) is re-decoded with ``decode_offline`` under the margin rule
-   of 5;
+   greedy), eager and then on the CUDA graph of its wave width, as 5;
+   every request completes, the grouped matmul launches at least 16
+   times and RMSNorm 33 per decode step, and each request whose prompt
+   is its wave's longest (``run_static`` pads the others with token 0)
+   is re-decoded with ``decode_offline`` under the margin rule of 5,
+   with the eager run's expert choices replayed (a graph would replay
+   the routing of its capture, so the pinned checks use the eager run,
+   and the graph run is held to the eager run's tokens);
 11. grouped matmul: once jamba is freed, as 3 at the group sizes that
    jamba's first MoE layer had in phase 9 and its last decode step in
    phase 10: the two prefill products (C=640) and the two decode products
@@ -84,7 +105,10 @@ head_dim 120, window 4096).  On the card:
    with one expert's group set to 0 rows and one to C.
 
 Each path's launch counts are set to 0 just before it and read just
-after; the kernels' ``launches`` are their sums over phases 4-10.
+after; the kernels' ``launches`` are their sums over phases 4-10 (the
+serving runs on graphs, which replays count, the eager ones only checked
+against them).  Each model's graphs are released before the next model
+is built.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -119,6 +143,8 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_scan_kernel_order, ssd_scan_ref)
+from repro_torch.launch import graphs  # noqa: E402
+from repro_torch.launch import scheduler as sched  # noqa: E402
 from repro_torch.launch.scheduler import (ContinuousBatcher,  # noqa: E402
                                           Request, decode_offline,
                                           prefill_bucket, run_static)
@@ -658,6 +684,17 @@ def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5,
                    warmup=1)
     ms_p = time_ms(lambda: lm_p.prefill(params, batch), iters=iters,
                    warmup=1)
+    if any(m == "slstm" for m, _ in cfg.layer_kinds()):
+        # the default replays the sLSTM recurrence from CUDA graphs
+        # (captured in the first prefill above); against the host loop
+        loop = dataclasses.replace(lm_k, graphs=False)
+        by_loop = loop.prefill(params, batch)
+        d = (got.float() - by_loop.float()).abs().max().item()
+        ms_loop = time_ms(lambda: loop.prefill(params, batch), iters=iters,
+                          warmup=1)
+        moe_note += (f"; the sLSTM recurrence replayed from CUDA graphs "
+                     f"{ms_k:.2f} ms against looped from the host "
+                     f"{ms_loop:.2f} ms, logits max abs diff {d:.4g}")
     if counts != expected_prefill_counts(cfg):
         raise AssertionError(f"{cfg.name} prefill launches {counts}, "
                              f"expected {expected_prefill_counts(cfg)}")
@@ -723,27 +760,26 @@ def _union_us(spans: list, lo: float, hi: float) -> float:
     return busy
 
 
-def phase_prefill_breakdown(lm_k: LM, params) -> dict:
-    """One more prefill with kernels under ``torch.profiler``: where the
-    device time goes, and how much of the window the device is idle.
-    The window is the host's span of the call and its synchronise, so
-    the profiler's own host cost (CPU activity is traced) counts as
-    idle time."""
+def profile_window(fn, name: str, label: str) -> tuple[dict, list]:
+    """``fn()`` and a synchronise under ``torch.profiler`` (CPU and CUDA
+    activity) inside a ``label`` annotation, the trace written to
+    ``build/traces/<name>.json``.  The window is the host's span of the
+    call and its synchronise, so the profiler's own host cost counts as
+    idle time.  Returns the window's ms, the device time and operations
+    in it and the device's busy and idle share, and those operations."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    cfg = lm_k.cfg
-    batch = prefill_batch(cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("prefill_window"):
-            lm_k.prefill(params, batch)
+        with record_function(label):
+            fn()
             torch.cuda.synchronize()
-    path = ROOT / "build" / "traces" / f"{cfg.name}_prefill.json"
+    path = ROOT / "build" / "traces" / f"{name}.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = [e for e in json.loads(path.read_text())["traceEvents"]
               if e.get("ph") == "X"]
-    win = [e for e in events if e.get("name") == "prefill_window"
+    win = [e for e in events if e.get("name") == label
            and e.get("cat") == "user_annotation"]
     dev = [e for e in events if e.get("cat") in DEVICE_CATS]
     if len(win) != 1 or not dev:
@@ -752,6 +788,19 @@ def phase_prefill_breakdown(lm_k: LM, params) -> dict:
     lo, hi = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
     dev = [e for e in dev if lo <= e["ts"] < hi]
     busy = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in dev], lo, hi)
+    return {"window_ms": (hi - lo) / 1e3,
+            "device_ms": sum(e["dur"] for e in dev) / 1e3,
+            "device_ops": len(dev), "busy": busy / (hi - lo),
+            "idle": 1 - busy / (hi - lo)}, dev
+
+
+def phase_prefill_breakdown(lm_k: LM, params) -> dict:
+    """One more prefill with kernels under ``torch.profiler``: where the
+    device time goes, and how much of the window the device is idle."""
+    cfg = lm_k.cfg
+    batch = prefill_batch(cfg)
+    rec, dev = profile_window(lambda: lm_k.prefill(params, batch),
+                              f"{cfg.name}_prefill", "prefill_window")
     cats: dict = {}
     ops: dict = {}
 
@@ -762,13 +811,10 @@ def phase_prefill_breakdown(lm_k: LM, params) -> dict:
         add(cats, device_category(e["name"], e["cat"]), e["dur"] / 1e3)
         add(ops, e["name"], e["dur"] / 1e3)
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]
-    rec = {"window_ms": (hi - lo) / 1e3,
-           "device_ms": sum(e["dur"] for e in dev) / 1e3,
-           "device_ops": len(dev), "busy": busy / (hi - lo),
-           "idle": 1 - busy / (hi - lo),
-           "by_category_ms_count": dict(sorted(cats.items(),
-                                               key=lambda kv: -kv[1][0])),
-           "top10_ms_count": [[name[:160], ms, n] for name, (ms, n) in top]}
+    rec.update(by_category_ms_count=dict(sorted(cats.items(),
+                                                key=lambda kv: -kv[1][0])),
+               top10_ms_count=[[name[:160], ms, n]
+                               for name, (ms, n) in top])
     tag = f"[prefill-breakdown] {cfg.name} B={PREFILL_B} S={PREFILL_S}"
     print(f"{tag}: window {rec['window_ms']:.2f} ms (host span of the "
           f"profiled call), device time {rec['device_ms']:.2f} ms in "
@@ -792,41 +838,217 @@ def _first_divergence(streamed: list[int], offline: list[int]) -> int | None:
     return None
 
 
-def phase_serve(lm_k: LM, params, device: dict, n_requests: int = REQUESTS,
-                prompt_range=PROMPT_RANGE, gen_range=GEN_RANGE) -> dict:
-    cfg = lm_k.cfg
-    s_max = prefill_bucket(prompt_range[1], 16) + gen_range[1]
-    trace = make_trace(cfg, n_requests, seed=SEED,
-                       prompt_len_range=prompt_range, gen_range=gen_range)
-    b = ContinuousBatcher(lm_k, params, slots=SLOTS, s_max=s_max, seed=SEED)
-    for t in trace:
-        b.submit(t["prompt"], t["max_new"], temperature=t["temperature"])
-    reset_counts()
-    rep = b.run()
+class Margins:
+    """Records the top-2 logit margin of every token the scheduler draws,
+    per request in draw order, by wrapping ``scheduler._sample`` (host
+    code, outside any graph)."""
+
+    def __init__(self):
+        self.by_rid: dict[int, list[float]] = {}
+        self._orig = sched._sample
+
+    def _record(self, row, seed, rid, pos, temperature):
+        top2 = np.partition(row, -2)[-2:]
+        self.by_rid.setdefault(rid, []).append(float(top2[1] - top2[0]))
+        return self._orig(row, seed, rid, pos, temperature)
+
+    def run(self, fn):
+        sched._sample = self._record
+        try:
+            return fn()
+        finally:
+            sched._sample = self._orig
+
+
+@dataclasses.dataclass
+class Served:
+    """One serving run: its report, launch counts and peak memory."""
+    rep: object
+    counts: dict
+    peak_gb: float
+
+
+def serve_run(fn) -> Served:
+    """``fn()``, a serving run, with the launch counts set to 0 just
+    before it and read just after, and the peak memory in it."""
     torch.cuda.synchronize()
-    counts = read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rep = fn()
+    torch.cuda.synchronize()
+    return Served(rep, read_counts(), torch.cuda.max_memory_allocated() / 1e9)
+
+
+def first_step_diff(lm_k: LM, params, s_max: int, vector_pos: bool,
+                    use: str) -> float:
+    """The largest logits difference between one step of the (memoised)
+    graph of ``SLOTS`` rows and the eager ``decode_step``, both from zero
+    caches on the same tokens at position 0."""
+    g = graphs.step_graph(lm_k, params, SLOTS, s_max, vector_pos, use=use)
+    g.reset()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    toks = torch.randint(0, lm_k.cfg.vocab, (SLOTS, 1), generator=gen,
+                         device=DEVICE)
+    if vector_pos:
+        pos = torch.zeros(SLOTS, dtype=torch.int32, device=DEVICE)
+        active = torch.ones(SLOTS, dtype=torch.bool, device=DEVICE)
+        got = g.run(toks, pos, active)
+        batch = {"tokens": toks, "pos": pos, "active": active}
+    else:
+        got = g.run(toks, 0)
+        batch = {"tokens": toks,
+                 "pos": torch.tensor(0, dtype=torch.int32, device=DEVICE)}
+    want, _ = lm_k.decode_step(params, batch, lm_k.init_caches(
+        SLOTS, s_max, vector_pos=vector_pos))
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"graph step logits {tuple(got.shape)} not "
+                             "finite")
+    diff = (got.float() - want.float()).abs().max().item()
+    g.reset()
+    return diff
+
+
+def check_served(cfg, run: Served, n_requests: int, steps: int,
+                 per_step: tuple = ("rmsnorm",)) -> None:
+    """Every request served in full, and each counted kernel launched at
+    least its per-step count on every one of ``steps`` decode steps."""
+    rep = run.rep
     if len(rep.requests) != n_requests:
         raise AssertionError(f"{len(rep.requests)} of {n_requests} served")
     for r in rep.requests:
         if r.finish != "length" or len(r.out) != r.max_new:
             raise AssertionError(f"rid {r.rid}: finish {r.finish!r}, "
                                  f"{len(r.out)} of {r.max_new} tokens")
-    n_norm = expected_prefill_counts(cfg)["rmsnorm"]
-    if counts["rmsnorm"] < n_norm * rep.steps:
-        raise AssertionError(f"rmsnorm launched {counts['rmsnorm']} times "
-                             f"over {rep.steps} decode steps")
-    for r in rep.requests[:2]:
-        _check_offline(lm_k, params, r, s_max)
+    want = expected_prefill_counts(cfg)
+    for name in per_step:
+        if run.counts[name] < want[name] * steps:
+            raise AssertionError(f"{name} launched {run.counts[name]} times "
+                                 f"over {steps} decode steps")
+
+
+def check_graph_run(tag: str, eager: Served, graph: Served,
+                    margins: Margins) -> int:
+    """The graph run launched what the eager run did, and streamed its
+    tokens, or parted first at a token whose top-2 logit margin in the
+    eager run was under ``MARGIN``.  Returns how many requests parted."""
+    if graph.counts != eager.counts:
+        raise AssertionError(f"{tag}: graph run launches {graph.counts}, "
+                             f"eager run {eager.counts}")
+    by_rid = {r.rid: r.out for r in eager.rep.requests}
+    parted = 0
+    for r in graph.rep.requests:
+        i = _first_divergence(r.out, by_rid[r.rid])
+        if i is None:
+            continue
+        m = margins.by_rid[r.rid][i]
+        print(f"[serve] {tag} rid {r.rid}: the graph run parts from the "
+              f"eager run at token {i} of {r.max_new}, eager top-2 logit "
+              f"margin {m:.4f}")
+        if m >= MARGIN:
+            raise AssertionError(f"{tag} rid {r.rid}: graph run diverges at "
+                                 f"token {i} with margin {m} >= {MARGIN}")
+        parted += 1
+    return parted
+
+
+def print_served(tag: str, mode: str, run: Served, ms_step: float,
+                 extra: str = "") -> None:
+    rep = run.rep
     d = rep.to_dict()
-    print(f"[serve] {cfg.name} on {device['kind']} ({device['smi']}): "
-          f"{rep.generated} "
-          f"tokens / {len(rep.requests)} requests in {rep.wall_s:.2f} s, "
+    print(f"[serve] {tag} {mode:>6}: {rep.generated} tokens / "
+          f"{len(rep.requests)} requests in {rep.wall_s:.2f} s, "
           f"{d['tok_per_s']:.1f} tok/s, p50 {d['latency_p50_s']:.3f} s, "
           f"p99 {d['latency_p99_s']:.3f} s, occupancy {rep.occupancy:.3f}, "
-          f"{rep.steps} decode steps at "
-          f"{rep.decode_s / max(rep.steps, 1) * 1e3:.2f} ms, prefill "
-          f"{rep.prefill_s:.2f} s; launches {counts}")
-    return counts
+          f"{ms_step:.2f} ms a decode "
+          f"step, prefill {rep.prefill_s:.2f} s, peak memory "
+          f"{run.peak_gb:.2f} GB{extra}; launches {run.counts}")
+
+
+def phase_serve(lm_k: LM, params, device: dict, n_requests: int = REQUESTS,
+                prompt_range=PROMPT_RANGE, gen_range=GEN_RANGE) -> dict:
+    cfg = lm_k.cfg
+    s_max = prefill_bucket(prompt_range[1], 16) + gen_range[1]
+    trace = make_trace(cfg, n_requests, seed=SEED,
+                       prompt_len_range=prompt_range, gen_range=gen_range)
+
+    def serve(graphs_on: bool):
+        b = ContinuousBatcher(lm_k, params, slots=SLOTS, s_max=s_max,
+                              seed=SEED, graphs=graphs_on)
+        for t in trace:
+            b.submit(t["prompt"], t["max_new"], temperature=t["temperature"])
+        return b.run()
+    margins = Margins()
+    eager = serve_run(lambda: margins.run(lambda: serve(False)))
+    check_served(cfg, eager, n_requests, eager.rep.steps)
+    # the graphs: the slot batch's (checked against one eager step), then
+    # one per prefill group width, in an untimed pass over the trace
+    built0, t0 = graphs.stats(), time.perf_counter()
+    diff = first_step_diff(lm_k, params, s_max, True, "slots")
+    serve(True)
+    built = graphs.stats()
+    n_graphs = built["graphs"] - built0["graphs"]
+    capture_s = built["capture_s"] - built0["capture_s"]
+    warm_s = time.perf_counter() - t0
+    graph = serve_run(lambda: serve(True))
+    check_served(cfg, graph, n_requests, graph.rep.steps)
+    tag = f"{cfg.name} on {device['kind']} ({device['smi']})"
+    parted = check_graph_run(cfg.name, eager, graph, margins)
+    for r in graph.rep.requests[:2]:
+        _check_offline(lm_k, params, r, s_max)
+    for mode, run in (("eager", eager), ("graphs", graph)):
+        extra = "" if mode == "eager" else (
+            f", {n_graphs} graphs captured in {capture_s:.2f} s (the "
+            f"untimed warm-up pass took {warm_s:.2f} s), first decode "
+            f"step's logits max abs diff to eager {diff:.4g}, {parted} of "
+            f"{n_requests} requests part from the eager run's tokens")
+        print_served(tag, mode, run, run.rep.decode_s
+                     / max(run.rep.steps, 1) * 1e3, extra)
+    print(f"[serve] {cfg.name}: graphs / eager tok/s "
+          f"{graph.rep.tok_per_s / eager.rep.tok_per_s:.2f}x, ms a decode "
+          f"step {graph.rep.decode_s / max(graph.rep.steps, 1) * 1e3:.2f} "
+          f"against {eager.rep.decode_s / max(eager.rep.steps, 1) * 1e3:.2f}"
+          f", prefill {graph.rep.prefill_s:.2f} s against "
+          f"{eager.rep.prefill_s:.2f} s")
+    return graph.counts
+
+
+def phase_decode_profile(lm_k: LM, params, s_max: int) -> dict:
+    """One decode step of the slot batch under ``torch.profiler``, eager
+    and replayed from its graph: the window and the device's busy and
+    idle share of it."""
+    g = graphs.step_graph(lm_k, params, SLOTS, s_max, True, use="slots")
+    g.reset()
+    toks = torch.zeros((SLOTS, 1), dtype=torch.int64, device=DEVICE)
+    pos = torch.full((SLOTS,), 64, dtype=torch.int32, device=DEVICE)
+    active = torch.ones(SLOTS, dtype=torch.bool, device=DEVICE)
+    caches = lm_k.init_caches(SLOTS, s_max, vector_pos=True)
+    batch = {"tokens": toks, "pos": pos, "active": active}
+    fns = {"eager": lambda: lm_k.decode_step(params, batch, caches),
+           "graph": lambda: g.run(toks, pos, active)}
+    out = {}
+    for mode, fn in fns.items():
+        fn()
+        rec, _ = profile_window(fn, f"{lm_k.cfg.name}_decode_{mode}",
+                                "decode_window")
+        # the same step unprofiled (host clock over a step and its
+        # synchronise), since the profiler's own host cost counts as idle
+        n = 20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+        rec["step_ms"] = (time.perf_counter() - t0) / n * 1e3
+        out[mode] = rec
+        print(f"[decode-profile] {lm_k.cfg.name} B={SLOTS} {mode}: window "
+              f"{rec['window_ms']:.3f} ms (host span of the profiled step),"
+              f" device time {rec['device_ms']:.3f} ms in "
+              f"{rec['device_ops']} operations, busy {rec['busy']:.3f}, "
+              f"idle {rec['idle']:.3f}; unprofiled {rec['step_ms']:.3f} ms "
+              f"a step, device time / that "
+              f"{rec['device_ms'] / rec['step_ms']:.3f}")
+    g.reset()
+    return out
 
 
 def _check_offline(lm_k: LM, params, r: Request, s_max: int,
@@ -863,62 +1085,79 @@ def phase_serve_static(lm_k: LM, params, device: dict
                        ) -> tuple[dict, list]:
     """MoE configs serve on the static path (the batcher refuses them):
     waves of ``SLOTS`` requests, each prompt padded to its wave's
-    longest with token 0.  Returns the launch counts and the expert ids
-    of every router call."""
+    longest with token 0; eager, then on the graph of the wave width.
+    Returns the graph run's launch counts and the expert ids of every
+    router call of the eager run."""
     cfg = lm_k.cfg
     s_max = prefill_bucket(J_PROMPT_RANGE[1], 16) + J_GEN_RANGE[1]
     trace = make_trace(cfg, J_REQUESTS, seed=SEED,
                        prompt_len_range=J_PROMPT_RANGE,
                        gen_range=J_GEN_RANGE)
-    reqs = [Request(rid=i, prompt_len=t["prompt_len"], max_new=t["max_new"],
-                    prompt=t["prompt"], temperature=t["temperature"],
-                    t_submit=time.perf_counter())
-            for i, t in enumerate(trace)]
-    waves = [reqs[i:i + SLOTS] for i in range(0, len(reqs), SLOTS)]
+
+    def requests():
+        return [Request(rid=i, prompt_len=t["prompt_len"],
+                        max_new=t["max_new"], prompt=t["prompt"],
+                        temperature=t["temperature"],
+                        t_submit=time.perf_counter())
+                for i, t in enumerate(trace)]
+
+    def serve(graphs_on: bool):
+        return run_static(lm_k, params, requests(), seed=SEED, s_max=s_max,
+                          slots=SLOTS, graphs=graphs_on)
+    waves = [requests()[i:i + SLOTS] for i in range(0, J_REQUESTS, SLOTS)]
     # decode_step calls: each wave steps through its longest prompt, then
     # its largest max_new less the token the prompt's last step gives
     calls = sum(max(r.prompt_len for r in w) + max(r.max_new for r in w) - 1
                 for w in waves)
-    torch.cuda.synchronize()
-    routing = Routing()
-    reset_counts()
-    rep = routing.run(lambda: run_static(lm_k, params, reqs, seed=SEED,
-                                         s_max=s_max, slots=SLOTS), False)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    if len(rep.requests) != J_REQUESTS:
-        raise AssertionError(f"{len(rep.requests)} of {J_REQUESTS} served")
-    for r in rep.requests:
-        if len(r.out) != r.max_new:
-            raise AssertionError(f"rid {r.rid}: {len(r.out)} of {r.max_new} "
-                                 "tokens")
-    per_step = expected_prefill_counts(cfg)
-    for name in ("rmsnorm", "moe_gmm"):
-        if counts[name] < per_step[name] * calls:
-            raise AssertionError(f"{name} launched {counts[name]} times "
-                                 f"over {calls} decode steps")
+    routing, margins = Routing(), Margins()
+    eager = serve_run(lambda: margins.run(
+        lambda: routing.run(lambda: serve(False), False)))
+    check_served(cfg, eager, J_REQUESTS, calls, ("rmsnorm", "moe_gmm"))
     # the longest prompts decode offline twice: with their own routing
     # (reported: batch 1 and batch 8 round differently, which can swap a
-    # near-tied expert, see Routing) and with the streamed run's (checked)
+    # near-tied expert, see Routing) and with the eager run's (checked)
     n_moe = sum(f == "moe" for _, f in cfg.layer_kinds())
+    served = {r.rid: r for r in eager.rep.requests}
     start = 0
     for w in waves:
         l_max = max(r.prompt_len for r in w)
         for row, r in enumerate(w):
             if r.prompt_len == l_max:
-                _check_offline(lm_k, params, r, s_max, check=False)
-                _check_offline(lm_k, params, r, s_max,
+                _check_offline(lm_k, params, served[r.rid], s_max,
+                               check=False)
+                _check_offline(lm_k, params, served[r.rid], s_max,
                                pinned=(routing, start, row))
         start += n_moe * (l_max + max(q.max_new for q in w) - 1)
-    d = rep.to_dict()
-    print(f"[serve] {cfg.name} static on {device['kind']} ({device['smi']}):"
-          f" {rep.generated} tokens / {len(rep.requests)} requests in "
-          f"{rep.wall_s:.2f} s, {d['tok_per_s']:.1f} tok/s, p50 "
-          f"{d['latency_p50_s']:.3f} s, p99 {d['latency_p99_s']:.3f} s, "
-          f"{calls} decode steps ({rep.steps} after the prompts) at "
-          f"{(rep.prefill_s + rep.decode_s) / calls * 1e3:.2f} ms, prompts "
-          f"{rep.prefill_s:.2f} s; launches {counts}")
-    return counts, routing.ids
+    # the graph of the wave width, checked against one eager step, then
+    # an untimed pass over the trace
+    built0, t0 = graphs.stats(), time.perf_counter()
+    diff = first_step_diff(lm_k, params, s_max, False, "step")
+    serve(True)
+    built = graphs.stats()
+    n_graphs = built["graphs"] - built0["graphs"]
+    capture_s = built["capture_s"] - built0["capture_s"]
+    warm_s = time.perf_counter() - t0
+    graph = serve_run(lambda: serve(True))
+    check_served(cfg, graph, J_REQUESTS, calls, ("rmsnorm", "moe_gmm"))
+    parted = check_graph_run(cfg.name, eager, graph, margins)
+    tag = f"{cfg.name} static on {device['kind']} ({device['smi']})"
+    for mode, run in (("eager", eager), ("graphs", graph)):
+        rep = run.rep
+        extra = f", {calls} decode steps ({rep.steps} after the prompts)"
+        if mode == "graphs":
+            extra += (f", {n_graphs} graphs captured in {capture_s:.2f} s "
+                      f"(the untimed warm-up pass took {warm_s:.2f} s), "
+                      f"first decode step's logits max abs diff to eager "
+                      f"{diff:.4g}, {parted} of {J_REQUESTS} requests part "
+                      "from the eager run's tokens")
+        print_served(tag, mode, run,
+                     (rep.prefill_s + rep.decode_s) / calls * 1e3, extra)
+    print(f"[serve] {cfg.name}: graphs / eager tok/s "
+          f"{graph.rep.tok_per_s / eager.rep.tok_per_s:.2f}x, ms a step "
+          f"{(graph.rep.prefill_s + graph.rep.decode_s) / calls * 1e3:.2f} "
+          f"against "
+          f"{(eager.rep.prefill_s + eager.rep.decode_s) / calls * 1e3:.2f}")
+    return graph.counts, routing.ids
 
 
 def main() -> int:
@@ -929,11 +1168,15 @@ def main() -> int:
     cfg, lm_k, lm_p, params = build_model(ARCH)
     paths = [phase_prefill(lm_k, lm_p, params)[0],
              phase_serve(lm_k, params, device)]
+    phase_decode_profile(lm_k, params,
+                         prefill_bucket(PROMPT_RANGE[1], 16) + GEN_RANGE[1])
+    graphs.release()
     del lm_k, lm_p, params
     xcfg, xlm_k, xlm_p, xparams = build_model(XARCH)
     paths += [phase_prefill(xlm_k, xlm_p, xparams, iters=3)[0],
               phase_serve(xlm_k, xparams, device, X_REQUESTS,
                           X_PROMPT_RANGE, X_GEN_RANGE)]
+    graphs.release()
     del xlm_k, xlm_p, xparams
     torch.cuda.empty_cache()
     for arch in HEAD_DIM_ARCHS:
@@ -947,6 +1190,7 @@ def main() -> int:
     phase_prefill_breakdown(jlm_k, jparams)
     j_serve, decode_ids = phase_serve_static(jlm_k, jparams, device)
     paths += [j_prefill, j_serve]
+    graphs.release()
     del jlm_k, jlm_p, jparams
     torch.cuda.empty_cache()
     cases.update(phase_gmm_kernels(prefill_ids, decode_ids))

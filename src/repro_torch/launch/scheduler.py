@@ -18,6 +18,16 @@ filled row into its slot of the batch cache.  The loop stops at the
 group's longest prompt: the reference scans the whole bucket to bound its
 jit compiles, and the extra steps are all-inactive no-ops.
 
+Compiled steps (``graphs``, the default): as the reference jits its
+decode step and its prefill side step, the batcher replays CUDA graphs
+(``launch/graphs.py``): one of the slot batch, whose static caches are
+the batch cache, and one per prefill group width ``k``, over a static
+batch-``k`` cache zeroed before each group.  On the CPU the same
+``StepGraph`` runs its step directly; ``graphs=False`` issues every
+operation from Python (the eager path).  The graphs are memoised per
+model and params, so batchers of one model share their caches: run one
+at a time.
+
 RNG: every sampling draw uses a ``torch.Generator`` seeded by a fixed
 integer mix of ``(seed, request id, input position)``, so a request's
 tokens do not depend on its co-tenants and the whole trace replays from
@@ -33,6 +43,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from .graphs import step_graph
 
 __all__ = ["Request", "ServeReport", "ContinuousBatcher", "decode_offline",
            "run_static", "prefill_bucket"]
@@ -167,11 +179,14 @@ class ContinuousBatcher:
         eos_id: token id that finishes a request early (``None``
             disables EOS detection — length-only termination).
         prefill_min: minimum prefill bucket (power-of-two grouping).
+        graphs: ``None`` or ``True`` steps through ``StepGraph``s
+            (captured CUDA graphs on CUDA, the direct form on the CPU);
+            ``False`` runs the eager step.
     """
 
     def __init__(self, lm, params, *, slots: int, s_max: int,
                  seed: int = 0, eos_id: int | None = None,
-                 prefill_min: int = 16):
+                 prefill_min: int = 16, graphs: bool | None = None):
         _check_batchable(lm.cfg)
         self.lm, self.params = lm, params
         self.cfg = lm.cfg
@@ -180,7 +195,15 @@ class ContinuousBatcher:
         self.eos_id = eos_id
         self.prefill_min = prefill_min
 
-        self.caches = lm.init_caches(slots, s_max, vector_pos=True)
+        self.graphs = graphs is not False
+        self._slot_graph = None
+        if self.graphs:
+            self._slot_graph = step_graph(lm, params, slots, s_max, True,
+                                          use="slots")
+            self._slot_graph.reset()
+            self.caches = self._slot_graph.caches
+        else:
+            self.caches = lm.init_caches(slots, s_max, vector_pos=True)
         self.queue: deque[Request] = deque()
         self._next_rid = 0
         self.pos = np.zeros(slots, np.int32)
@@ -215,23 +238,44 @@ class ContinuousBatcher:
         k = len(pairs)
         now = time.perf_counter()
         lengths = np.array([r.prompt_len for _, r in pairs], np.int64)
-        toks = np.zeros((int(lengths.max()), k, 1), np.int64)
+        steps = int(lengths.max())
+        toks = np.zeros((steps, k, 1), np.int64)
         for i, (_slot, req) in enumerate(pairs):
             req.t_admit = now
             toks[:req.prompt_len, i, 0] = req.prompt
+        # staged on the device once; each step reads its row
         xs = torch.as_tensor(toks, device=dev)
-        lengths_t = torch.as_tensor(lengths, device=dev)
-        small = lm.init_caches(k, self.s_max, vector_pos=True)
+        act = torch.as_tensor(np.arange(steps)[:, None] < lengths[None],
+                              device=dev)
+        if self.graphs:
+            graph = step_graph(lm, self.params, k, self.s_max, True,
+                               use="prefill")
+            graph.reset()
+            small = graph.caches
+
+            def step(t):
+                return graph.run(xs[t], t, act[t])
+        else:
+            small = lm.init_caches(k, self.s_max, vector_pos=True)
+
+            def step(t):
+                nonlocal small
+                batch = {"tokens": xs[t],
+                         "pos": torch.full((k,), t, dtype=torch.int32,
+                                           device=dev),
+                         "active": act[t]}
+                logits, small = lm.decode_step(self.params, batch, small)
+                return logits
+        # each request's logits at its last prompt position, in a buffer
+        # of their own (a graph's logits are overwritten by its next run)
         last = None
-        for t in range(toks.shape[0]):
-            batch = {"tokens": xs[t],
-                     "pos": torch.full((k,), t, dtype=torch.int32,
-                                       device=dev),
-                     "active": t < lengths_t}
-            logits, small = lm.decode_step(self.params, batch, small)
-            row = logits[:, -1]
-            last = row if last is None else torch.where(
-                (lengths_t - 1 == t)[:, None], row, last)
+        for t in range(steps):
+            row = step(t)[:, -1]
+            if t == 0:
+                last = row.clone()
+                continue
+            for i in np.flatnonzero(lengths - 1 == t):
+                last[int(i)] = row[int(i)]
         # install every leaf of each block's cache (KVCache, MLSTMState,
         # SLSTMState): the batch axis is 0, or 1 inside a stacked group
         # whose leading axis is layers.
@@ -313,8 +357,12 @@ class ContinuousBatcher:
                 continue    # every admitted request finished at token 0
             # one decode step over the whole batch
             t0 = time.perf_counter()
-            logits, self.caches = self.lm.decode_step(
-                self.params, self._decode_batch(), self.caches)
+            if self._slot_graph is not None:
+                logits = self._slot_graph.run(self.tokens, self.pos,
+                                              self.active)
+            else:
+                logits, self.caches = self.lm.decode_step(
+                    self.params, self._decode_batch(), self.caches)
             logits_np = _host_rows(logits)
             rep.decode_s += time.perf_counter() - t0
             rep.steps += 1
@@ -387,12 +435,14 @@ def decode_offline(lm, params, req: Request, *, seed: int, s_max: int,
 
 def run_static(lm, params, requests: list[Request], *, seed: int,
                s_max: int, slots: int | None = None,
-               eos_id: int | None = None) -> ServeReport:
+               eos_id: int | None = None,
+               graphs: bool | None = None) -> ServeReport:
     """The lock-step baseline at the same batch width: requests go in
     waves of ``slots`` rows in submission order, each wave's prompts
     padded to its longest, and every row decodes until the wave's largest
     ``max_new``.  The report counts only useful tokens (each request's
-    own ``max_new``)."""
+    own ``max_new``).  ``graphs`` as in :class:`ContinuousBatcher`: one
+    ``StepGraph`` per wave width, at a scalar position."""
     slots = slots or len(requests)
     rep = ServeReport(slots=slots)
     if not requests:
@@ -408,19 +458,30 @@ def run_static(lm, params, requests: list[Request], *, seed: int,
         for i, r in enumerate(wave):
             prompts[i, :r.prompt_len] = r.prompt
 
-        caches = lm.init_caches(B, s_max)
+        if graphs is not False:
+            graph = step_graph(lm, params, B, s_max, False)
+            graph.reset()
 
-        def step(t: int, toks: np.ndarray):
-            nonlocal caches
-            batch = {"pos": torch.tensor(t, dtype=torch.int32, device=dev),
-                     "tokens": torch.as_tensor(toks, device=dev)}
-            logits, caches = lm.decode_step(params, batch, caches)
-            return _host_rows(logits)
+            def step(t: int, toks) -> torch.Tensor:
+                return graph.run(toks, t)
+        else:
+            caches = lm.init_caches(B, s_max)
+
+            def step(t: int, toks) -> torch.Tensor:
+                nonlocal caches
+                batch = {"pos": torch.tensor(t, dtype=torch.int32,
+                                             device=dev),
+                         "tokens": torch.as_tensor(toks, device=dev)}
+                logits, caches = lm.decode_step(params, batch, caches)
+                return logits
 
         t_wave = time.perf_counter()
-        logits_np = None
+        # the prompts are staged on the device once; only the last prompt
+        # step's logits go to the host
+        prompts_t = torch.as_tensor(prompts, device=dev)
         for t in range(l_max):
-            logits_np = step(t, prompts[:, t:t + 1])
+            logits = step(t, prompts_t[:, t:t + 1])
+        logits_np = _host_rows(logits)
         rep.prefill_s += time.perf_counter() - t_wave
         t0 = time.perf_counter()
         toks = np.zeros((B, 1), np.int64)
@@ -431,11 +492,11 @@ def run_static(lm, params, requests: list[Request], *, seed: int,
             r.out = [tok]
             toks[i, 0] = tok
             done[i] = eos_id is not None and tok == eos_id
-        for g in range(1, g_max):
-            logits_np = step(l_max + g - 1, toks)
+        for n in range(1, g_max):
+            logits_np = _host_rows(step(l_max + n - 1, toks))
             rep.steps += 1
             for i, r in enumerate(wave):
-                tok = _sample(logits_np[i], seed, r.rid, l_max + g - 1,
+                tok = _sample(logits_np[i], seed, r.rid, l_max + n - 1,
                               r.temperature)
                 if not done[i] and len(r.out) < r.max_new:
                     r.out.append(tok)

@@ -21,6 +21,14 @@ mLSTM chunkwise and selective-scan kernels serve ``LM.prefill``.
 ``--device cpu`` runs the same path on the CPU with the kernels' plain
 versions.
 
+Both serving paths step through ``launch/graphs.py``: on the card each
+decode step and each prefill side step replays a CUDA graph, captured on
+its first use (the counterpart of the reference's jit compiles); on the
+CPU the same steps run directly.  ``--warmup`` passes build the graphs,
+so the reported tok/s excludes capture, as the reference's excludes
+compiles; the graphs captured and their capture seconds are printed
+beside the results.
+
 The request trace comes from its own numpy stream; the parameters from a
 ``torch.Generator`` seeded with ``--seed``; sampling draws are keyed per
 (request, position) inside the scheduler.  MoE configs (jamba) are served
@@ -39,6 +47,7 @@ import numpy as np
 
 from ..configs import get_config, list_archs
 from ..models.lm import LM
+from . import graphs
 from .scheduler import ContinuousBatcher, Request, prefill_bucket, run_static
 
 
@@ -112,6 +121,7 @@ def main(argv=None) -> dict:
                        gen_range=(g_lo, g_hi),
                        temperature=args.temperature)
 
+    before = graphs.stats()
     is_moe = any(ffn == "moe" for _, ffn in cfg.layer_kinds())
     metrics: dict = {"arch": args.arch, "device": str(lm.device),
                      "plan": {"source": "skipped"}}
@@ -149,6 +159,11 @@ def main(argv=None) -> dict:
                      / max(metrics["static"]["tok_per_s"], 1e-9))
             metrics["continuous_vs_static"] = ratio
             print(f"[serve] continuous/static throughput: {ratio:.2f}x")
+    after = graphs.stats()
+    metrics["graphs"] = {k: after[k] - before[k] for k in after}
+    print(f"[serve] graphs: {metrics['graphs']['graphs']} captured in "
+          f"{metrics['graphs']['capture_s']:.2f} s"
+          + (" (during the warm-up passes)" if args.warmup else ""))
     return metrics
 
 

@@ -147,14 +147,30 @@ def init_norm(pb: ParamBuilder, path: str, kind: str, d: int,
 # Rotary position embeddings (with partial-rotary support)
 # --------------------------------------------------------------------------
 
+#: (rot_dim, base, device) → the f32 inverse frequencies on that device
+_INV_FREQ: dict[tuple, torch.Tensor] = {}
+
+
+def _inv_freq(rot_dim: int, base: float, device: torch.device
+              ) -> torch.Tensor:
+    """The inverse frequencies, built once per (rot_dim, base, device):
+    a copy from the host inside a decode step would stall it, and a CUDA
+    graph capture refuses one."""
+    key = (rot_dim, base, device)
+    inv_t = _INV_FREQ.get(key)
+    if inv_t is None:
+        inv = 1.0 / (base ** (np.arange(0, rot_dim, 2) / rot_dim))
+        inv_t = _INV_FREQ[key] = torch.tensor(inv, dtype=F32, device=device)
+    return inv_t
+
+
 def rope_angles(positions: torch.Tensor, rot_dim: int,
                 base: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
     """positions (..., S) → cos/sin (..., S, rot_dim//2).  The inverse
     frequencies come from numpy in float64, as in the reference, and the
     product with the positions is taken in f32."""
-    inv = 1.0 / (base ** (np.arange(0, rot_dim, 2) / rot_dim))
-    inv_t = torch.tensor(inv, dtype=F32, device=positions.device)
-    ang = positions[..., None].to(F32) * inv_t
+    ang = positions[..., None].to(F32) * _inv_freq(rot_dim, base,
+                                                   positions.device)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -112,6 +112,9 @@ class LM:
     cfg: ArchConfig
     use_kernels: bool = False
     device: torch.device | str = "cuda"
+    #: ``False`` loops the sLSTM recurrence of a full sequence from the
+    #: host on CUDA too, where by default it replays from a CUDA graph
+    graphs: bool | None = None
 
     def __post_init__(self):
         check_ported(self.cfg)
@@ -205,7 +208,7 @@ class LM:
                 out, new_cache = slstm_block(x, bp["mix"], cfg, c,
                                              state=cache)
             else:
-                out = slstm_block(x, bp["mix"], cfg, c)
+                out = slstm_block(x, bp["mix"], cfg, c, graphs=self.graphs)
         elif mix == "mamba":
             if cache is not None:
                 state, carry = cache

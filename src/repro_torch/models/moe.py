@@ -75,6 +75,22 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, moe: MoEConfig
     return gate, idx, MoEAux(lb, z, torch.zeros((), device=x.device))
 
 
+#: the function itself: a replaced ``router_topk`` (a test's or a
+#: script's pin of the expert choice) would run only once in a CUDA
+#: graph, at capture, so ``launch/graphs.py`` refuses to capture or replay
+#: a graph of an MoE model while ``router_topk`` is not this
+ROUTER_TOPK = router_topk
+
+
+def expert_counts(eid: torch.Tensor, E: int) -> torch.Tensor:
+    """(N,) expert ids → (E,) int64 copies per expert, empty experts 0:
+    ``torch.bincount(eid, minlength=E)`` at a fixed size, without the
+    host sync that sizes bincount's output on CUDA (which a CUDA graph
+    capture refuses)."""
+    return torch.zeros(E, dtype=torch.int64, device=eid.device) \
+        .index_add_(0, eid, torch.ones_like(eid, dtype=torch.int64))
+
+
 def dispatch_indices(idx: torch.Tensor, E: int, capacity: int
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort-based slotting: for each (token, k) assignment return
@@ -85,7 +101,7 @@ def dispatch_indices(idx: torch.Tensor, E: int, capacity: int
     order = torch.argsort(flat, stable=True)
     ranked = flat[order]
     # position within its expert group = global rank - group offset
-    counts = torch.bincount(flat, minlength=E)
+    counts = expert_counts(flat, E)
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
     pos_sorted = torch.arange(flat.shape[0], device=idx.device) \
         - offsets[ranked]
@@ -150,7 +166,7 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, constrain: Constrain,
     disp = dispatch(xt, K, eid, slot, keep, E, capacity)
     disp = constrain(disp, ("experts", "cap", "d_model"), "moe_dispatched")
 
-    gs = (torch.clamp(torch.bincount(eid, minlength=E), max=capacity)
+    gs = (torch.clamp(expert_counts(eid, E), max=capacity)
           if use_kernels else None)
     w_in = p["w_in"]
     h = _expert_matmul(disp, w_in.reshape(E, D, 2 * Fe), gs) \

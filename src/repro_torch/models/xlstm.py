@@ -10,7 +10,8 @@ shapes and dtypes.
 * **sLSTM** — scalar-memory LSTM with exponential gating and a
   stabiliser state.  Its recurrence feeds h_{t-1} back through the gate
   pre-activations, so it runs step by step: the reference's
-  ``lax.scan`` over time becomes a loop.
+  ``lax.scan`` over time becomes a loop, which on CUDA a full sequence
+  replays from a CUDA graph.
 
 The mLSTM head dim is ``proj_factor_mlstm · d_model / n_heads`` (384 on
 xlstm-125m), not ``cfg.resolved_head_dim``.
@@ -188,22 +189,79 @@ def _slstm_step(p: dict, state: SLSTMState, x_t: torch.Tensor
     return SLSTMState(c, n, h, m_new), h
 
 
-def slstm_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
-                constrain: Constrain,
-                state: Optional[SLSTMState] = None):
-    """x (B,S,D) → (B,S,D); with ``state`` also the final state.  A fresh
-    sequence starts from ``m = -1e30`` (the reference's ``slstm_block``;
-    the caches of ``LM.init_caches`` start from 0 instead)."""
-    B, S, D = x.shape
-    zeros = [torch.zeros((B, D), dtype=F32, device=x.device)
-             for _ in range(3)]
-    carry = state if state is not None else SLSTMState(
-        *zeros, torch.full((B, D), -1e30, dtype=F32, device=x.device))
+def _fresh_slstm(B: int, D: int, device) -> SLSTMState:
+    """A fresh sequence's state: zeros and ``m = -1e30`` (the reference's
+    ``slstm_block``; the caches of ``LM.init_caches`` start from 0)."""
+    zeros = [torch.zeros((B, D), dtype=F32, device=device) for _ in range(3)]
+    return SLSTMState(*zeros, torch.full((B, D), -1e30, dtype=F32,
+                                         device=device))
+
+
+def _slstm_scan(p: dict, x: torch.Tensor, carry: SLSTMState
+                ) -> tuple[torch.Tensor, SLSTMState]:
+    """The recurrence over x (B,S,D) step by step: the reference's
+    ``lax.scan`` over time as a loop.  Returns (y in x's dtype, carry)."""
     hs = []
-    for t in range(S):
+    for t in range(x.shape[1]):
         carry, h = _slstm_step(p, carry, x[:, t])
         hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)
+    return torch.stack(hs, dim=1).to(x.dtype), carry
+
+
+class _ScanGraph:
+    """The recurrence from a fresh state over a static copy of x,
+    captured once in a CUDA graph (``launch/graphs.Graph``) and replayed:
+    the counterpart of the reference's jitted ``lax.scan``, whose S steps
+    of ~15 small operations each the host would otherwise issue one by
+    one.  The graph reads the weights at the addresses it was captured
+    with, so it is memoised on those addresses (``_scan_graph``)."""
+
+    def __init__(self, p: dict, x: torch.Tensor):
+        from ..launch.graphs import Graph
+        B, _, D = x.shape
+        self.x = x.clone()
+        self.y = None
+
+        def body():
+            self.y = _slstm_scan(p, self.x, _fresh_slstm(B, D, x.device))[0]
+
+        def warmup():
+            _slstm_step(p, _fresh_slstm(B, D, x.device), self.x[:, 0])
+        self.graph = Graph(body, warmup, x.device)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(x)
+        self.graph.replay()
+        return self.y.clone()
+
+
+def _scan_graph(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """y of the fresh-state recurrence over x, replayed from the graph
+    memoised on x's shape and the weights' addresses and layouts."""
+    from ..launch.graphs import memo
+    ws = [p["w_gates"], p["r_gates"]]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [x, *ws]):
+        raise RuntimeError("the sLSTM's CUDA graph carries no gradients: "
+                           "build the LM with graphs=False to train it")
+    key = ("slstm", tuple(x.shape), x.dtype, x.device,
+           *((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+             for t in ws))
+    return memo(key, lambda: _ScanGraph(p, x))(x)
+
+
+def slstm_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                constrain: Constrain,
+                state: Optional[SLSTMState] = None,
+                graphs: bool | None = None):
+    """x (B,S,D) → (B,S,D); with ``state`` also the final state.  A fresh
+    sequence (no ``state``) on CUDA replays its recurrence from a CUDA
+    graph unless ``graphs`` is False; on the CPU it always loops."""
+    B, S, D = x.shape
+    if state is None and x.is_cuda and graphs is not False:
+        y, carry = _scan_graph(p, x), None
+    else:
+        y, carry = _slstm_scan(p, x, state if state is not None
+                               else _fresh_slstm(B, D, x.device))
     y = constrain(y, ("batch", "seq", "d_model"), "scan_out")
 
     if "w_ffn_in" in p:

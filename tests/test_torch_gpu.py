@@ -470,3 +470,140 @@ def test_jamba_prefill_runs_the_kernels(cuda):
     assert [f.launches - b for f, b in zip(counts, before)] == [33, 2, 14, 16]
     want = lm_p.prefill(params, {"tokens": toks})
     np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)
+
+
+# -- CUDA graphs of the serving steps (``launch/graphs.py``) ---------------
+
+def _smoke(arch, cuda, **over):
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
+    lm = LM(cfg, use_kernels=True, device=cuda)
+    params, _ = lm.init(0)
+    return lm, params
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _tree_leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+@pytest.mark.parametrize("arch,vector_pos", [("smollm-135m", True),
+                                             ("xlstm-125m", True),
+                                             ("jamba-v0.1-52b", False)])
+def test_step_graph_replay_matches_eager_step(cuda, arch, vector_pos):
+    """Replays of a captured ``StepGraph`` against the eager
+    ``decode_step`` on the same inputs: logits and every cache leaf at
+    the bf16 tolerance (cuBLAS may pick other algorithms under capture),
+    the slot held inactive bit-identical."""
+    from repro_torch.launch import graphs
+    lm, params = _smoke(arch, cuda)
+    B, S_max = 3, 32
+    g = graphs.StepGraph(lm, params, B, S_max, vector_pos)
+    assert g.graph is not None
+    caches = lm.init_caches(B, S_max, vector_pos=vector_pos)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    active = torch.tensor([True, False, True], device=cuda)
+    pos = torch.tensor([2, 5, 0], dtype=torch.int32, device=cuda)
+    for t in range(6):
+        toks = torch.randint(0, lm.cfg.vocab, (B, 1), generator=gen,
+                             device=cuda)
+        if vector_pos:
+            got = g.run(toks, pos + t, active).clone()
+            want, caches = lm.decode_step(params, {
+                "tokens": toks, "pos": pos + t, "active": active}, caches)
+        else:
+            got = g.run(toks, t).clone()
+            want, caches = lm.decode_step(params, {
+                "tokens": toks, "pos": torch.tensor(t, dtype=torch.int32,
+                                                    device=cuda)}, caches)
+        np.testing.assert_allclose(f32(got), f32(want), **tol("bfloat16"))
+    for gi, (_pattern, repeats) in enumerate(lm._groups()):
+        grp = f"group{gi}"
+        for a, b in zip(_tree_leaves(g.caches[grp]),
+                        _tree_leaves(caches[grp])):
+            np.testing.assert_allclose(f32(a), f32(b), **tol("bfloat16"))
+            if vector_pos:      # slot 1 never stepped: still zero
+                assert not a.select(1 if repeats > 1 else 0, 1).any()
+    graphs.release()
+
+
+def test_step_graph_counts_replayed_launches(cuda):
+    """The capture adds no launch (the warm-up's one step ran), and N
+    replays add N times a step's: every norm and two grouped matmuls per
+    MoE layer."""
+    from repro_torch.launch import graphs
+    lm, params = _smoke("jamba-v0.1-52b", cuda)
+    kinds = lm.cfg.layer_kinds()
+    per_step = [lm.cfg.n_layers + 1 + sum(f != "none" for _, f in kinds),
+                2 * sum(f == "moe" for _, f in kinds)]
+    counted = (trms.rmsnorm, tgmm.moe_gmm)
+    before = [f.launches for f in counted]
+    g = graphs.StepGraph(lm, params, 2, 16, False)
+    assert [f.launches - b for f, b in zip(counted, before)] == per_step
+    before = [f.launches for f in counted]
+    toks = torch.zeros((2, 1), dtype=torch.int64, device=cuda)
+    for t in range(5):
+        g.run(toks, t)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counted, before)] == \
+        [5 * n for n in per_step]
+    graphs.release()
+
+
+def test_capture_refuses_host_syncs_and_replaced_routers(cuda, monkeypatch):
+    """A step that reads a value on the host raises at capture, with the
+    counters as they were; so does an MoE model's step while
+    ``router_topk`` is replaced (a replay would reuse the capture's
+    routing).  Nothing falls back to the eager step."""
+    from repro_torch.launch import graphs
+    from repro_torch.models import moe
+    x = torch.ones(4, device=cuda)
+    before = trms.rmsnorm.launches
+    scale = torch.ones(4, device=cuda)
+
+    def synced():
+        trms.rmsnorm(x[None], scale)
+        if x.sum().item() > 0:
+            x.add_(1)
+    with pytest.raises(RuntimeError):
+        graphs.Graph(synced, lambda: None, cuda)
+    assert trms.rmsnorm.launches == before
+    lm, params = _smoke("jamba-v0.1-52b", cuda)
+    monkeypatch.setattr(moe, "router_topk",
+                        lambda *a: moe.ROUTER_TOPK(*a))
+    with pytest.raises(RuntimeError, match="router_topk is replaced"):
+        graphs.step_graph(lm, params, 2, 16, False)
+    graphs.release()
+
+
+def test_slstm_graph_matches_the_loop(cuda):
+    """xLSTM prefill with the sLSTM recurrence replayed from its CUDA
+    graph against the host loop (``graphs=False``): twice, so the second
+    prefill replays the memoised graphs."""
+    from repro_torch.launch import graphs
+    lm, params = _smoke("xlstm-125m", cuda)
+    loop = dataclasses.replace(lm, graphs=False)
+    n0 = graphs.stats()["graphs"]
+    for seed in (0, 1):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        toks = torch.randint(0, lm.cfg.vocab, (2, 48), generator=gen,
+                             device=cuda)
+        got = lm.prefill(params, {"tokens": toks})
+        want = loop.prefill(params, {"tokens": toks})
+        np.testing.assert_allclose(f32(got), f32(want), **tol("bfloat16"))
+    n_s = sum(m == "slstm" for m, _ in lm.cfg.layer_kinds())
+    assert graphs.stats()["graphs"] - n0 == n_s
+    # a graph carries no gradients: asked for some, it refuses
+    from repro_torch.models import xlstm
+    mix = params["group1"]["b0"]["mix"]                # the sLSTM layer
+    assert "r_gates" in mix
+    p = {k: v.detach().requires_grad_() for k, v in mix.items()}
+    x = torch.randn(2, 8, lm.cfg.d_model, device=cuda).bfloat16()
+    with pytest.raises(RuntimeError, match="no gradients"):
+        xlstm._scan_graph(p, x)
+    graphs.release()
