@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's prefill and serving paths at the full width of three
-models, with random weights from a seeded ``torch.Generator``:
+models, and its train step at the full width of two, with random weights
+from a seeded ``torch.Generator``:
 smollm-135m (30 layers, d 576, 9/3 heads, head_dim 64, d_ff 1536, vocab
 49152), xlstm-125m (12 layers: 10 mLSTM, 2 sLSTM; d 768, 4 heads,
 mLSTM head dim 384, chunk 256, vocab 50304, untied head) and
@@ -102,13 +103,31 @@ head_dim 120, window 4096).  On the card:
    (C=8) in bf16 at 2e-2, and the first prefill product with F cut from
    28672 to 3584 in f32 at 2e-4 (so its f32 weights take 0.94 GB, not
    7.5), against ``torch.bmm`` as the library time; each is also checked
-   with one expert's group set to 0 rows and one to C.
+   with one expert's group set to 0 rows and one to C;
+12. train: ``build_train_step`` on smollm-135m at full width (remat
+   full, AdamW lr 1e-3 with the reference driver's cosine warm-up of 1
+   step), 20 steps at B=8, S=1024 from ``ShardedLoader(SyntheticCorpus)``:
+   the loss of every step, the median step ms (CUDA events, after 2
+   warm-up steps), tokens/s, model TFLOP/s (6·N_params + 6·L·S·d per
+   token, x4/3 for the remat) and peak memory, on ``[train]`` lines; the
+   mean of the last 5 losses must be below the first, and no kernel may
+   launch (training runs the plain paths, as the reference's does).  Then
+   one more step under ``torch.profiler`` (``[train-profile]``: busy and
+   idle share, operations), and the checks: remat none, full and dots
+   give the same loss and gradients (1e-5 of each leaf's largest
+   magnitude); ``accum_steps=2`` gives the full batch's update (rtol
+   2e-2, atol 2e-3); a loss through ``use_kernels=True`` with params that
+   require grad raises; one step on the card equals one on the CPU at
+   B=1, S=128 (loss 1e-3 and gradient norm 1e-2 relative, each updated
+   param within ``2·lr·(1 + wd·|p|)`` plus one bf16 step).  Last,
+   xlstm-125m at full width, 3 steps at B=4, S=512 (its train step's LM
+   has ``graphs=False``).
 
 Each path's launch counts are set to 0 just before it and read just
 after; the kernels' ``launches`` are their sums over phases 4-10 (the
 serving runs on graphs, which replays count, the eager ones only checked
-against them).  Each model's graphs are released before the next model
-is built.
+against them); the train runs of phase 12 must count none.  Each
+model's graphs are released before the next model is built.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -132,6 +151,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import ShardedLoader, SyntheticCorpus  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -149,9 +169,12 @@ from repro_torch.launch.scheduler import (ContinuousBatcher,  # noqa: E402
                                           Request, decode_offline,
                                           prefill_bucket, run_static)
 from repro_torch.launch.serve import make_trace  # noqa: E402
+from repro_torch.launch.steps import build_train_step  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import capacity_of  # noqa: E402
+from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by type.
 HBM_BYTES_PER_S = 3.35e12
@@ -195,6 +218,19 @@ J_TOL_USED_EARLIER = 0.69
 J_REQUESTS, J_PROMPT_RANGE, J_GEN_RANGE = 8, (16, 128), (16, 64)
 #: the f32 grouped-matmul case cuts F by this factor (weights 0.94 GB)
 GMM_F32_F_CUT = 8
+#: training (phase 12): smollm-135m at B=8, S=1024 with full remat, as
+#: the reference's driver trains (AdamW lr 1e-3, cosine warm-up 1)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 1024, 20, 2, 1e-3
+#: xlstm-125m's few steps at B=4, S=512 (its sLSTM loops from the host)
+X_TRAIN_B, X_TRAIN_S, X_TRAIN_STEPS = 4, 512, 3
+#: the card's train step against the CPU's, at B=1, S=128: loss and the
+#: global gradient norm relative tolerances
+PARITY_B, PARITY_S, PARITY_LOSS_RTOL, PARITY_GN_RTOL = 1, 128, 1e-3, 1e-2
+#: remat modes against each other: share of each leaf's largest magnitude
+#: (the embedding's backward scatter-adds with atomics)
+REMAT_TOL = 1e-5
+#: gradient accumulation against the full batch (tests/test_substrate.py)
+ACCUM_RTOL, ACCUM_ATOL = 2e-2, 2e-3
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -801,6 +837,19 @@ def phase_prefill_breakdown(lm_k: LM, params) -> dict:
     batch = prefill_batch(cfg)
     rec, dev = profile_window(lambda: lm_k.prefill(params, batch),
                               f"{cfg.name}_prefill", "prefill_window")
+    tag = f"[prefill-breakdown] {cfg.name} B={PREFILL_B} S={PREFILL_S}"
+    print(f"{tag}: window {rec['window_ms']:.2f} ms (host span of the "
+          f"profiled call), device time {rec['device_ms']:.2f} ms in "
+          f"{len(dev)} operations, busy {rec['busy']:.3f}, idle "
+          f"{rec['idle']:.3f}")
+    print_breakdown(tag, rec, dev)
+    print(f"{tag}: {json.dumps(rec)}")
+    return rec
+
+
+def print_breakdown(tag: str, rec: dict, dev: list) -> None:
+    """Adds to ``rec`` the device time and count by category and of the
+    ten costliest device operations in ``dev``, and prints them."""
     cats: dict = {}
     ops: dict = {}
 
@@ -815,18 +864,11 @@ def phase_prefill_breakdown(lm_k: LM, params) -> dict:
                                                 key=lambda kv: -kv[1][0])),
                top10_ms_count=[[name[:160], ms, n]
                                for name, (ms, n) in top])
-    tag = f"[prefill-breakdown] {cfg.name} B={PREFILL_B} S={PREFILL_S}"
-    print(f"{tag}: window {rec['window_ms']:.2f} ms (host span of the "
-          f"profiled call), device time {rec['device_ms']:.2f} ms in "
-          f"{len(dev)} operations, busy {rec['busy']:.3f}, idle "
-          f"{rec['idle']:.3f}")
     print(f"{tag}: by category (ms, count): " + ", ".join(
         f"{c} {ms:.3f} ({n})" for c, (ms, n) in
         rec["by_category_ms_count"].items()))
     for i, (name, ms, n) in enumerate(rec["top10_ms_count"]):
         print(f"{tag}: top {i + 1}: {ms:.3f} ms ({n}) {name[:120]}")
-    print(f"{tag}: {json.dumps(rec)}")
-    return rec
 
 
 def _first_divergence(streamed: list[int], offline: list[int]) -> int | None:
@@ -1194,6 +1236,8 @@ def main() -> int:
     del jlm_k, jlm_p, jparams
     torch.cuda.empty_cache()
     cases.update(phase_gmm_kernels(prefill_ids, decode_ids))
+    torch.cuda.empty_cache()
+    phase_train()
 
     main_path = {k: sum(p[k] for p in paths) for k in COUNTED}
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -1291,6 +1335,275 @@ def main() -> int:
         "platform": "gpu", "kind": device["kind"],
         "count": device["count"]}}))
     return 0
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 step at |x|."""
+    return torch.exp2(torch.floor(torch.log2(
+        x.float().abs().clamp_min(1e-30))) - 7)
+
+
+def _global_norm(grads) -> float:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(grads))).item()
+
+
+def _copy(tree, device):
+    """A copy of a param tree on ``device``."""
+    return {k: _copy(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
+
+
+def train_run(step, params, opt_state, loader, steps: int, lr_fn):
+    """``steps`` steps; the loss of each, and each step's ms between CUDA
+    events (the device's timeline, idle gaps included)."""
+    losses, events = [], []
+    for i in range(steps):
+        batch = loader.batch_at(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, m = step.fn(params, opt_state, batch,
+                                       lr_scale=lr_fn(i))
+        end.record()
+        losses.append(m["loss"])
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return params, opt_state, [float(x) for x in losses], \
+        [a.elapsed_time(b) for a, b in events]
+
+
+def check_train_parity(cfg, params) -> dict:
+    """One train step on the card against one on the CPU from the same
+    params and batch (B=1, S=128), each as ``fn`` runs it (``grads``, then
+    ``opt.update``), so the gradient norm is that of the gradients the
+    update applies: loss, global gradient norm, and every updated param
+    within the most one AdamW step can move it either way,
+    ``2·lr·(1 + wd·|p|)``, plus one bf16 step of |p|."""
+    batch = SyntheticCorpus(cfg.vocab, seed=SEED + 1).batch(
+        0, 0, PARITY_B, PARITY_S)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        step = build_train_step(cfg, opt=AdamW(lr=TRAIN_LR), device=dev)
+        p = _copy(params, dev)
+        grads, metrics = step.grads(p, batch)
+        gn = _global_norm(grads)
+        p, _ = step.opt.update(grads, step.opt.init(p), p)
+        out[dev] = (float(metrics["loss"]), gn, _copy(p, "cpu"))
+    (lc, gc, pc), (lh, gh, ph) = out[DEVICE], out["cpu"]
+    opt = AdamW(lr=TRAIN_LR)
+    p0 = _copy(params, "cpu")
+    worst = 0.0
+    for a, b, w0 in zip(tree_leaves(pc), tree_leaves(ph), tree_leaves(p0)):
+        bound = (2 * opt.lr * (1 + opt.weight_decay * w0.float().abs())
+                 + _bf16_ulp(w0))
+        worst = max(worst, ((a.float() - b.float()).abs() / bound)
+                    .max().item())
+    rec = {"loss_rel": abs(lc - lh) / abs(lh), "grad_norm_rel":
+           abs(gc - gh) / gh, "step_bound_used": worst, "loss_card": lc,
+           "loss_cpu": lh, "grad_norm_card": gc, "grad_norm_cpu": gh}
+    print(f"[train] card vs CPU, {cfg.name} B={PARITY_B} S={PARITY_S}: "
+          f"loss {lc:.6f} vs {lh:.6f} (rel {rec['loss_rel']:.2e}, tol "
+          f"{PARITY_LOSS_RTOL}), grad norm {gc:.6f} vs {gh:.6f} (rel "
+          f"{rec['grad_norm_rel']:.2e}, tol {PARITY_GN_RTOL}), updated "
+          f"params use {worst:.3f} of the one-step bound")
+    if rec["loss_rel"] > PARITY_LOSS_RTOL or \
+            rec["grad_norm_rel"] > PARITY_GN_RTOL or worst > 1.0:
+        raise AssertionError(f"train step card vs CPU: {rec}")
+    return rec
+
+
+def check_remat(cfg, params, batch) -> float:
+    """``remat`` none, full and dots: the same loss and gradients, within
+    ``REMAT_TOL`` of each leaf's largest magnitude."""
+    ref = None
+    worst = 0.0
+    for remat in ("none", "full", "dots"):
+        torch.cuda.reset_peak_memory_stats()
+        step = build_train_step(cfg, remat=remat, device=DEVICE)
+        grads, m = step.grads(params, batch)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        leaves = tree_leaves(grads)
+        if ref is None:
+            ref = (float(m["loss"]), leaves)
+            print(f"[train] remat none: loss {ref[0]:.6f}, peak memory "
+                  f"{peak:.2f} GB")
+            continue
+        dl = abs(float(m["loss"]) - ref[0])
+        d = max(((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(leaves, ref[1]))
+        worst = max(worst, d, dl / abs(ref[0]))
+        print(f"[train] remat {remat}: loss diff {dl:.3e}, gradients "
+              f"differ by up to {d:.3e} of a leaf's largest magnitude (tol "
+              f"{REMAT_TOL}); peak memory {peak:.2f} GB")
+        del grads, leaves
+    if worst > REMAT_TOL:
+        raise AssertionError(f"remat modes disagree: {worst} > {REMAT_TOL}")
+    return worst
+
+
+def check_accumulation(cfg, params, batch) -> float:
+    """``accum_steps=2`` against 1 with the default AdamW, as the
+    reference's test takes them: the updated params within rtol 2e-2,
+    atol 2e-3 (its tolerance)."""
+    out = []
+    for accum in (1, 2):
+        step = build_train_step(cfg, accum_steps=accum, device=DEVICE)
+        p = _copy(params, DEVICE)
+        p, _, _ = step.fn(p, step.opt.init(p), batch)
+        out.append(tree_leaves(p))
+    worst = 0.0
+    for a, b in zip(*out):
+        a, b = a.float(), b.float()
+        worst = max(worst, ((a - b).abs() / (ACCUM_ATOL + ACCUM_RTOL
+                                             * b.abs())).max().item())
+    print(f"[train] accum_steps=2 vs 1, B={TRAIN_B} S={TRAIN_S}: updated "
+          f"params use {worst:.3f} of the tolerance (rtol {ACCUM_RTOL}, "
+          f"atol {ACCUM_ATOL})")
+    if worst > 1.0:
+        raise AssertionError(f"accumulation differs from the full batch: "
+                             f"{worst:.3f} of the tolerance")
+    return worst
+
+
+def check_guard(cfg, params, batch) -> None:
+    """A loss through the kernels with params that require grad raises:
+    the kernels carry no gradient."""
+    lm_k = LM(cfg, use_kernels=True, device=DEVICE, graphs=False)
+    p = {**params, "final_norm": {
+        "scale": params["final_norm"]["scale"].detach().clone()
+        .requires_grad_()}}
+    tb = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    try:
+        lm_k.loss_fn(p, tb)
+    except RuntimeError as e:
+        if "carry no gradient" not in str(e):
+            raise
+        print(f"[train] guard: a loss through the kernels with params that "
+              f"require grad raises: {e}")
+        return
+    raise AssertionError("a loss through the kernels took gradients")
+
+
+def phase_train() -> dict:
+    """smollm-135m trained at full width (remat full, B=8, S=1024, 20
+    steps) and xlstm-125m (B=4, S=512, 3 steps), the five checks, and one
+    smollm step under ``torch.profiler``."""
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    step = build_train_step(cfg, opt=AdamW(lr=TRAIN_LR), remat="full",
+                            device=DEVICE)
+    params, _ = step.lm.init(SEED)
+    p_init = _copy(params, DEVICE)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    loader = ShardedLoader(SyntheticCorpus(cfg.vocab, seed=SEED), TRAIN_B,
+                           TRAIN_S)
+    lr_fn = cosine_schedule(1.0, warmup=1, total=TRAIN_STEPS)
+    opt_state = step.opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    params, opt_state, losses, ms = train_run(step, params, opt_state,
+                                              loader, TRAIN_STEPS, lr_fn)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if any(counts.values()):
+        raise AssertionError(f"the train step launched kernels: {counts}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses not finite: {losses}")
+    tail = float(np.mean(losses[-5:]))
+    if not tail < losses[0]:
+        raise AssertionError(f"the loss did not fall: first {losses[0]}, "
+                             f"mean of the last 5 {tail}")
+    step_ms = float(np.median(ms[TRAIN_WARMUP:]))
+    tokens = TRAIN_B * TRAIN_S
+    flops = (6 * n_params + 6 * cfg.n_layers * TRAIN_S * cfg.d_model) \
+        * tokens * 4 / 3
+    rec = {"arch": cfg.name, "B": TRAIN_B, "S": TRAIN_S, "remat": "full",
+           "steps": TRAIN_STEPS, "losses": losses, "step_ms": ms,
+           "median_step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "model_tflops": flops / step_ms / 1e9, "peak_gb": peak,
+           "loss_margin": losses[0] - tail, "launches": counts,
+           "n_params": n_params}
+    print(f"[train] {cfg.name} ({n_params / 1e6:.1f}M params) B={TRAIN_B} "
+          f"S={TRAIN_S} remat full, AdamW lr {TRAIN_LR}, cosine warm-up 1: "
+          f"losses " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"[train] {cfg.name}: median {step_ms:.2f} ms a step (CUDA "
+          f"events, after {TRAIN_WARMUP} warm-up steps; steps "
+          + " ".join(f"{x:.1f}" for x in ms) + f"), {rec['tokens_per_s']:.0f}"
+          f" tokens/s, model {rec['model_tflops']:.1f} TFLOP/s "
+          f"({flops / 1e12:.2f} TFLOP a step: 6·N + 6·L·S·d per token, "
+          f"x4/3 for the remat), peak memory {peak:.2f} GB; the loss fell "
+          f"from {losses[0]:.4f} to {tail:.4f} (mean of the last 5, margin "
+          f"{rec['loss_margin']:.4f}); kernel launches {counts} (the train "
+          "step runs the plain paths)")
+    batch = loader.batch_at(TRAIN_STEPS)
+    rec["profile"] = phase_train_profile(step, params, opt_state, batch)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    rec["remat_worst"] = check_remat(cfg, p_init, batch)
+    rec["accum_used"] = check_accumulation(cfg, p_init, batch)
+    check_guard(cfg, p_init, batch)
+    rec["parity"] = check_train_parity(cfg, p_init)
+    del p_init, step
+    torch.cuda.empty_cache()
+    rec["xlstm"] = phase_train_xlstm()
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[train] phase 12 took {rec['phase_s']:.1f} s")
+    print(f"[train] {json.dumps(rec)}")
+    return rec
+
+
+def phase_train_profile(step, params, opt_state, batch) -> dict:
+    """One smollm train step under ``torch.profiler``: the device's busy
+    and idle share of the window, and its operation count."""
+    p = _copy(params, DEVICE)
+    st = type(opt_state)(opt_state.step.clone(),
+                         _copy(opt_state.mu, DEVICE),
+                         _copy(opt_state.nu, DEVICE))
+    fn = lambda: step.fn(p, st, batch)  # noqa: E731
+    rec, dev = profile_window(fn, f"{ARCH}_train_step", "train_window")
+    n = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    rec["step_ms"] = (time.perf_counter() - t0) / n * 1e3
+    print(f"[train-profile] {ARCH} B={TRAIN_B} S={TRAIN_S} remat full: "
+          f"window {rec['window_ms']:.2f} ms (host span of the profiled "
+          f"step), device time {rec['device_ms']:.2f} ms in "
+          f"{rec['device_ops']} operations, busy {rec['busy']:.3f}, idle "
+          f"{rec['idle']:.3f}; unprofiled {rec['step_ms']:.2f} ms a step, "
+          f"device time / that {rec['device_ms'] / rec['step_ms']:.3f}")
+    print_breakdown(f"[train-profile] {ARCH}", rec, dev)
+    return rec
+
+
+def phase_train_xlstm() -> dict:
+    """xlstm-125m at full width, a few steps: the LM of the train step is
+    built with ``graphs=False`` (the sLSTM's graph refuses gradients)."""
+    cfg = get_config(XARCH)
+    step = build_train_step(cfg, opt=AdamW(lr=TRAIN_LR), remat="full",
+                            device=DEVICE)
+    params, _ = step.lm.init(SEED)
+    loader = ShardedLoader(SyntheticCorpus(cfg.vocab, seed=SEED),
+                           X_TRAIN_B, X_TRAIN_S)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, _, losses, ms = train_run(step, params, step.opt.init(params),
+                                 loader, X_TRAIN_STEPS, lambda i: 1.0)
+    counts = read_counts()
+    if any(counts.values()) or not all(np.isfinite(losses)):
+        raise AssertionError(f"xlstm train: launches {counts}, losses "
+                             f"{losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] {cfg.name} B={X_TRAIN_B} S={X_TRAIN_S} remat full "
+          f"(graphs=False): losses " + " ".join(f"{x:.4f}" for x in losses)
+          + "; step ms " + " ".join(f"{x:.1f}" for x in ms)
+          + f"; peak memory {peak:.2f} GB")
+    return {"losses": losses, "step_ms": ms, "peak_gb": peak}
 
 
 def build_model(arch: str, n_layers: int | None = None):

@@ -24,7 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import attention_ref
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -57,6 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (BH, G, Sq, Dh); k (BH, Skv, Dh); v (BH, Skv, Dv) →
     (BH, G, Sq, Dv) in q's dtype.  BH = batch × kv_heads, G = query
     group size."""
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -116,6 +117,7 @@ def from_kernel_layout(o: torch.Tensor, B: int) -> torch.Tensor:
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, window: int | None = None) -> torch.Tensor:
     """q (B,Sq,H,Dh); k/v (B,Skv,KVH,Dh) with GQA → (B,Sq,H,Dv)."""
+    refuse_grad("mha", q, k, v)
     qk, kk, vk = to_kernel_layout(q, k, v)
     o = flash_attention(qk, kk, vk, causal=causal, window=window)
     return from_kernel_layout(o, q.shape[0])

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import mlstm_chunk_ref
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -69,6 +69,7 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if S % min(chunk, S):
         raise ValueError(f"mlstm_chunk: S={S} is not a multiple of the "
                          f"chunk {min(chunk, S)}")
+    refuse_grad("mlstm_chunk", q, k, v, i_pre, f_pre)
     if q.device.type == "cpu":
         return mlstm_chunk_plain(q, k, v, i_pre, f_pre, chunk=chunk)
     if q.device.type != "cuda":

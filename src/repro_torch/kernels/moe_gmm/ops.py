@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import moe_gmm_ref
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -44,6 +44,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
         raise ValueError(f"moe_gmm: shapes x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, group_sizes "
                          f"{tuple(group_sizes.shape)}")
+    refuse_grad("moe_gmm", x, w)
     if x.device.type == "cpu":
         return moe_gmm_ref(x, w, group_sizes)
     if x.device.type != "cuda":

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import rmsnorm_ref
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -26,6 +26,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """x (..., D), scale (D,) → x's shape and dtype:
     ``x * rsqrt(mean(x²) + eps) * scale`` in f32."""
+    refuse_grad("rmsnorm", x, scale)
     if not x.is_cuda:
         if x.device.type == "cpu":
             return rmsnorm_ref(x, scale, eps)

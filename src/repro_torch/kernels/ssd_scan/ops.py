@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import ssd_scan_ref
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -48,6 +48,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan: S={S} must be a multiple of the chunk "
                          f"{min(chunk, S)} and Din={Din} of the d_block "
                          f"{min(d_block, Din)}")
+    refuse_grad("ssd_scan", x, dt, A, Bm, Cm)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm)
     if x.device.type != "cuda":

@@ -1,1 +1,1 @@
-"""Serving driver and continuous-batching scheduler."""
+"""Serving driver, continuous-batching scheduler and the train step."""

@@ -208,3 +208,23 @@ def mlp(x: torch.Tensor, p: dict, constrain=lambda t, d, s=None: t
     gate, up = h[..., 0, :], h[..., 1, :]
     act = F.silu(gate.to(F32)).to(x.dtype) * up
     return act @ p["w_out"]
+
+
+# --------------------------------------------------------------------------
+# Loss (a stable logsumexp, no host gather)
+# --------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy in f32, plus ``z_loss`` times the mean
+    squared logsumexp (router-style logit regularisation).  The max is
+    taken without a gradient, as the reference's ``stop_gradient``."""
+    logits = logits.to(F32)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = torch.mean(lse - gold)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss

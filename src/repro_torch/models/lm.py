@@ -8,6 +8,10 @@ stacked ``layers`` axis, this module loops over it.
 
 Entry points:
 
+* ``loss_fn(params, batch)`` — training loss and its metrics (the MoE
+  aux terms included); with ``remat`` each layer of a stacked group is
+  recomputed in the backward pass, as the reference's ``jax.checkpoint``
+  of the scan body.
 * ``logits_fn(params, batch)`` — full-sequence logits (teacher forcing).
 * ``prefill(params, batch)`` — full-sequence forward; returns the
   last-position logits (as the reference does; it returns no caches).
@@ -32,21 +36,34 @@ Families outside this slice raise ``NotImplementedError`` naming the
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from ..bridge import params_from_numpy
 from ..configs.base import ArchConfig
 from .attention import KVCache, gqa_attention, init_gqa
-from .layers import (BF16, F32, ParamBuilder, apply_norm, init_mlp,
-                     init_norm, mlp)
+from .layers import (BF16, F32, ParamBuilder, apply_norm, cross_entropy,
+                     init_mlp, init_norm, mlp)
 from .moe import MoEAux, init_moe, moe_ffn
 from .ssm import SSMState, init_mamba, mamba_block
 from .xlstm import (MLSTMState, SLSTMState, init_mlstm, init_slstm,
                     mlstm_block, slstm_block)
+
+
+AUX_LB_WEIGHT = 0.01
+AUX_Z_WEIGHT = 1e-3
+REMATS = ("none", "full", "dots")
+#: ``remat="dots"``: keep the outputs of the un-batched matrix products
+#: and recompute the rest, as ``dots_with_no_batch_dims_saveable`` does
+_DOTS_CONTEXTS = functools.partial(
+    create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
 
 
 def _noop_constrain(x, dims, site=None):
@@ -59,6 +76,8 @@ def check_ported(cfg: ArchConfig) -> None:
     todo = []
     if cfg.mla is not None:
         todo.append("MLA attention (ROADMAP A9)")
+    if cfg.mtp:
+        todo.append("the MTP loss (ROADMAP A9)")
     if cfg.frontend != "tokens" or cfg.cross_attn_every:
         todo.append(f"the {cfg.frontend} frontend and cross-attention "
                     "(ROADMAP A4)")
@@ -88,6 +107,18 @@ def _map_cache(fn, *caches):
     return fn(*caches)
 
 
+def _records_grad(resid: torch.Tensor, gparams: dict) -> bool:
+    """Whether autograd records a layer that reads ``resid`` and
+    ``gparams``: grad mode on and an input that requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    if resid.requires_grad:
+        return True
+    found = []
+    _map_cache(lambda t: found.append(t.requires_grad), gparams)
+    return any(found)
+
+
 def _stack_layers(old, given, new):
     """The stacked cache of a group from its per-layer caches, as
     ``lax.scan`` stacks them: ``given[i]`` is the view of ``old`` that
@@ -115,9 +146,17 @@ class LM:
     #: ``False`` loops the sLSTM recurrence of a full sequence from the
     #: host on CUDA too, where by default it replays from a CUDA graph
     graphs: bool | None = None
+    #: ``none``, ``full`` or ``dots``: what each layer of a stacked group
+    #: keeps for the backward pass.  It applies only where autograd
+    #: records the layer (``_records_grad``); prefill, decode and the CUDA
+    #: graphs run with params that require no grad, and never reach it
+    remat: str = "full"
 
     def __post_init__(self):
         check_ported(self.cfg)
+        if self.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got "
+                             f"{self.remat!r}")
         self.device = resolve_device(self.device)
 
     # -- helpers ---------------------------------------------------------------
@@ -265,13 +304,20 @@ class LM:
                     new_caches[f"group{gi}"] = nc
                 continue
             # the loop that replaces lax.scan over the stacked layers axis
+            remat = (self.remat != "none" and caches is None
+                     and _records_grad(resid, gparams))
             given, per_layer = [], []
             for i in range(repeats):
                 lp = _map_cache(lambda t, i=i: t[i], gparams)
                 lc = (_map_cache(lambda t, i=i: t[i], gcaches)
                       if caches is not None else None)
-                resid, ax, nc = self._super_block(resid, lp, pattern,
-                                                  positions, lc, active)
+                if remat:
+                    resid, ax = self._remat_layer(resid, lp, pattern,
+                                                  positions)
+                    nc = None
+                else:
+                    resid, ax, nc = self._super_block(
+                        resid, lp, pattern, positions, lc, active)
                 auxes += ax
                 given.append(lc)
                 per_layer.append(nc)
@@ -279,6 +325,16 @@ class LM:
                 new_caches[f"group{gi}"] = _stack_layers(gcaches, given,
                                                          per_layer)
         return resid, auxes, new_caches
+
+    def _remat_layer(self, resid, lp, pattern, positions):
+        """One layer of a stacked group under ``torch.utils.checkpoint``,
+        the counterpart of the reference's ``jax.checkpoint`` of its scan
+        body; returns (resid, the MoEAux of each MoE layer)."""
+        def layer(r, lp):
+            r, ax, _ = self._super_block(r, lp, pattern, positions)
+            return r, ax
+        kw = {"context_fn": _DOTS_CONTEXTS} if self.remat == "dots" else {}
+        return checkpoint(layer, resid, lp, use_reentrant=False, **kw)
 
     def _embed(self, params, batch):
         resid = params["embed"][batch["tokens"]].to(BF16)
@@ -303,6 +359,27 @@ class LM:
         resid = self._embed(params, batch)
         resid, _, _ = self._backbone(params, resid, self._positions(B, S))
         return self._head(params, resid)
+
+    def loss_fn(self, params, batch) -> tuple[torch.Tensor, dict]:
+        """(loss, metrics) of a batch of ``tokens`` and ``labels`` (B, S):
+        the mean cross-entropy with its z-loss (``xent``) plus the MoE
+        layers' summed load-balance (``aux_lb``) and router z losses
+        (``aux_z``) at ``AUX_LB_WEIGHT`` and ``AUX_Z_WEIGHT``; the aux
+        terms are zeros without MoE layers, as the reference's are."""
+        B, S = batch["labels"].shape
+        resid = self._embed(params, batch)
+        resid, auxes, _ = self._backbone(params, resid,
+                                         self._positions(B, S))
+        logits = self._head(params, resid)
+        loss = cross_entropy(logits, batch["labels"])
+        lb = zl = torch.zeros((), device=self.device)
+        for a in auxes:
+            lb = lb + a.load_balance_loss
+            zl = zl + a.router_z_loss
+        metrics = {"xent": loss, "aux_lb": lb, "aux_z": zl}
+        loss = loss + AUX_LB_WEIGHT * lb + AUX_Z_WEIGHT * zl
+        metrics["loss"] = loss
+        return loss, metrics
 
     def prefill(self, params, batch, with_aux: bool = False):
         """Full-sequence forward returning the last-position logits

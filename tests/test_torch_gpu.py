@@ -607,3 +607,83 @@ def test_slstm_graph_matches_the_loop(cuda):
     with pytest.raises(RuntimeError, match="no gradients"):
         xlstm._scan_graph(p, x)
     graphs.release()
+
+
+# -- the train step --------------------------------------------------------
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "xlstm-125m"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step on the card against one on the CPU, from the same
+    params and batch: loss within 1e-3 and the global gradient norm
+    within 1e-2 relative; every updated param within the most one AdamW
+    step can move it either way, 2·lr·(1 + wd·|p|), plus one bf16 step of
+    |p|."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = get_config(arch, smoke=True)
+    batch = SyntheticCorpus(cfg.vocab, seed=0).batch(0, 0, 2, 32)
+    params, _ = LM(cfg, device="cpu").init(0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        step = build_train_step(cfg, device=dev)
+        p = _tree_to(params, dev)
+        grads, metrics = step.grads(p, batch)
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                            for g in tree_leaves(grads))).item()
+        p, _, _ = step.fn(p, step.opt.init(p), batch)
+        out[dev.type] = (float(metrics["loss"]), gn, _tree_to(p, "cpu"))
+    (lc, gc, pc), (lh, gh, ph) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-3 * abs(lh)
+    assert abs(gc - gh) <= 1e-2 * gh
+    opt = step.opt
+    for a, b, w0 in zip(tree_leaves(pc), tree_leaves(ph),
+                        tree_leaves(params)):
+        w0 = w0.float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            w0.abs().clamp_min(1e-30))) - 7)
+        bound = 2 * opt.lr * (1 + opt.weight_decay * w0.abs()) + ulp
+        assert bool(((a.float() - b.float()).abs() <= bound).all())
+
+
+def test_kernel_wrappers_refuse_gradients_on_card(cuda):
+    """Each kernel wrapper raises on a CUDA input that requires grad (its
+    output would carry none), before it launches anything."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+    calls = [
+        (trms.rmsnorm, [r(8, 64), r(64, dtype=torch.float32)], {}),
+        (tfa.flash_attention, [r(2, 2, 64, 64), r(2, 64, 64),
+                               r(2, 64, 64)], {}),
+        (tfa.mha, [r(1, 64, 4, 64), r(1, 64, 2, 64), r(1, 64, 2, 64)], {}),
+        (tml.mlstm_chunk, [r(1, 64, 2, 64), r(1, 64, 2, 64),
+                           r(1, 64, 2, 64), r(1, 64, 2), r(1, 64, 2)],
+         {"chunk": 64}),
+        (tssd.ssd_scan, [r(1, 64, 64), r(1, 64, 64).abs(),
+                         -r(64, 8, dtype=torch.float32).abs(), r(1, 64, 8),
+                         r(1, 64, 8)], {"chunk": 64}),
+        (tgmm.moe_gmm, [r(2, 16, 64), r(2, 64, 64)], {}),
+    ]
+    for fn, xs, kw in calls:
+        extra = ([torch.tensor([3, 16], dtype=torch.int32, device=cuda)]
+                 if fn is tgmm.moe_gmm else [])
+        for i in range(len(xs)):
+            ys = [x.clone().requires_grad_(j == i) for j, x in enumerate(xs)]
+            before = [f.launches for f in (trms.rmsnorm, tfa.flash_attention,
+                                           tml.mlstm_chunk, tssd.ssd_scan,
+                                           tgmm.moe_gmm)]
+            with pytest.raises(RuntimeError, match="carry no gradient"):
+                fn(*ys, *extra, **kw)
+            assert before == [f.launches for f in (
+                trms.rmsnorm, tfa.flash_attention, tml.mlstm_chunk,
+                tssd.ssd_scan, tgmm.moe_gmm)]
+            with torch.no_grad():
+                fn(*ys, *extra, **kw)
+    torch.cuda.synchronize()
