@@ -121,13 +121,31 @@ head_dim 120, window 4096).  On the card:
    B=1, S=128 (loss 1e-3 and gradient norm 1e-2 relative, each updated
    param within ``2·lr·(1 + wd·|p|)`` plus one bf16 step).  Last,
    xlstm-125m at full width, 3 steps at B=4, S=512 (its train step's LM
-   has ``graphs=False``).
+   has ``graphs=False``);
+13. train driver: ``repro_torch.launch.train.main`` in this process on
+   smollm-135m at full width, B=8, S=1024, remat full, 10 steps, in a
+   fresh temporary directory (removed at the end): (a) uninterrupted,
+   without checkpoints; (b) a checkpoint every 3 steps, preempted at step
+   7; (c) the same run again, which must resume from step 6, its four
+   losses (steps 6-9) within rtol 1e-4 of (a)'s (the reference's bound
+   for its resume test).  Each run's wall seconds and the loop's ms per
+   step (the gaps between the driver's calls of its straggler monitor,
+   saves included) on ``[driver]`` lines, and the disk space free before
+   (b).  (d) The checkpoint (``[ckpt]`` lines): (c)'s newest step restored
+   into a card tree (seconds), saved again (the ms ``save()`` takes to
+   return, its synchronous host copy, then the seconds of ``wait()``, the
+   background write with its CRC), its bytes and leaves; restored into a
+   CPU tree, which must equal the card's tree bit for bit; then one byte
+   of its shard flipped: ``restore`` must raise
+   ``CheckpointCorruptionError`` and ``restore_latest`` return the step
+   before.  (e) No kernel may launch in (a)-(c): the driver trains on the
+   plain paths, as the reference's does.
 
 Each path's launch counts are set to 0 just before it and read just
 after; the kernels' ``launches`` are their sums over phases 4-10 (the
 serving runs on graphs, which replays count, the eager ones only checked
-against them); the train runs of phase 12 must count none.  Each
-model's graphs are released before the next model is built.
+against them); the train runs of phases 12 and 13 must count none.
+Each model's graphs are released before the next model is built.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -138,10 +156,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -163,7 +184,12 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_scan_kernel_order, ssd_scan_ref)
+from repro_torch.distributed import (CheckpointManager,  # noqa: E402
+                                     StragglerMonitor)
+from repro_torch.distributed.checkpoint import (  # noqa: E402
+    CheckpointCorruptionError, _flatten, _unflatten)
 from repro_torch.launch import graphs  # noqa: E402
+from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.launch import scheduler as sched  # noqa: E402
 from repro_torch.launch.scheduler import (ContinuousBatcher,  # noqa: E402
                                           Request, decode_offline,
@@ -231,6 +257,12 @@ PARITY_B, PARITY_S, PARITY_LOSS_RTOL, PARITY_GN_RTOL = 1, 128, 1e-3, 1e-2
 REMAT_TOL = 1e-5
 #: gradient accumulation against the full batch (tests/test_substrate.py)
 ACCUM_RTOL, ACCUM_ATOL = 2e-2, 2e-3
+#: the train driver (phase 13): steps, checkpoint cadence, the preempted
+#: step and the step the resumed run must start from
+DRIVER_STEPS, DRIVER_EVERY, DRIVER_PREEMPT, DRIVER_RESUME = 10, 3, 7, 6
+#: the resumed run's losses against the uninterrupted run's (the
+#: reference's resume test, tests/test_substrate.py:171-172)
+RESUME_RTOL = 1e-4
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1238,6 +1270,8 @@ def main() -> int:
     cases.update(phase_gmm_kernels(prefill_ids, decode_ids))
     torch.cuda.empty_cache()
     phase_train()
+    torch.cuda.empty_cache()
+    phase_train_driver()
 
     main_path = {k: sum(p[k] for p in paths) for k in COUNTED}
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -1604,6 +1638,182 @@ def phase_train_xlstm() -> dict:
           + "; step ms " + " ".join(f"{x:.1f}" for x in ms)
           + f"; peak memory {peak:.2f} GB")
     return {"losses": losses, "step_ms": ms, "peak_gb": peak}
+
+
+CLOCKS: list = []
+
+
+@dataclasses.dataclass
+class StepClock(StragglerMonitor):
+    """The driver's straggler monitor, also keeping the host clock at each
+    of its calls (once a step, after the loss reaches the host): the gaps
+    between calls are the loop's time per step, saves included."""
+    stamps: list = dataclasses.field(default_factory=list)
+
+    def __post_init__(self):
+        CLOCKS.append(self)
+
+    def step(self, host_times_s):
+        self.stamps.append(time.perf_counter())
+        return super().step(host_times_s)
+
+
+def driver_run(tag: str, argv: list) -> dict:
+    """``launch.train.main(argv)`` with its wall seconds and the loop's
+    ms per step (mean gap between monitor calls: the first step's own
+    time, and the final ``wait()``, fall outside the gaps)."""
+    CLOCKS.clear()
+    with mock.patch.object(train_driver, "StragglerMonitor", StepClock):
+        t0 = time.perf_counter()
+        out = train_driver.main(argv)
+        t1 = time.perf_counter()
+    stamps = CLOCKS[0].stamps
+    losses = out["losses"]
+    if len(stamps) < 2 or not all(np.isfinite(losses)):
+        raise AssertionError(f"driver run {tag}: losses {losses}")
+    gaps = np.diff(stamps) * 1e3
+    out.update(wall_s=t1 - t0, gap_ms=gaps.tolist(),
+               ms_per_step=float(np.mean(gaps)), tail_s=t1 - stamps[-1])
+    print(f"[driver] ({tag}) {' '.join(argv[-4:])}: {len(losses)} steps in "
+          f"{out['wall_s']:.2f} s wall, the loop {out['ms_per_step']:.1f} ms "
+          f"a step (gaps " + " ".join(f"{g:.1f}" for g in gaps) + "), "
+          f"{out['tail_s']:.3f} s from the last step to the return; losses "
+          + " ".join(f"{x:.4f}" for x in losses))
+    return out
+
+
+def _like_on(tree, device):
+    """Zeros shaped like a checkpoint tree, on ``device``."""
+    return _unflatten(tree, [torch.zeros(v.shape, dtype=v.dtype,
+                                         device=device)
+                             for _, v in _flatten(tree)])
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def phase_checkpoint(directory: Path) -> dict:
+    """(d): the newest step of ``directory`` restored into a card tree,
+    saved again and timed, restored on the CPU bit for bit, then
+    corrupted."""
+    cfg = get_config(ARCH)
+    params, _ = LM(cfg, device=DEVICE).init(SEED)
+    opt = AdamW(lr=TRAIN_LR, moment_dtype=cfg.opt_moment_dtype)
+    like = {"params": params, "opt": opt.init(params)}
+    mgr = CheckpointManager(directory)
+    step = mgr.latest_step()
+    t0 = time.perf_counter()
+    state = mgr.restore(step, like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del like, params
+    named = _flatten(state)
+    nbytes = sum(v.numel() * v.element_size() for _, v in named)
+    t0 = time.perf_counter()
+    mgr.save(step + 1, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mgr.wait()
+    wait_s = time.perf_counter() - t0
+    shard = directory / f"step_{step + 1:06d}" / "shard_h000.npz"
+    file_bytes = shard.stat().st_size
+    cpu_like = _like_on(state, "cpu")
+    t0 = time.perf_counter()
+    host = _flatten(mgr.restore(step + 1, cpu_like))
+    cpu_restore_s = time.perf_counter() - t0
+    bad = [k for (k, a), (_, b) in zip(named, host)
+           if b.device.type != "cpu" or not _bits_equal(a.cpu(), b)]
+    if bad:
+        raise AssertionError(f"the CPU restore differs from the card's "
+                             f"tree at {bad[:5]} ({len(bad)} leaves)")
+    del host
+    with open(shard, "r+b") as f:
+        f.seek(file_bytes // 2)
+        byte = f.read(1)[0]
+        f.seek(file_bytes // 2)
+        f.write(bytes([byte ^ 0xFF]))
+    try:
+        mgr.restore(step + 1, cpu_like)
+    except CheckpointCorruptionError as e:
+        print(f"[ckpt] flipped one byte of step {step + 1}'s shard: "
+              f"restore raised {type(e).__name__}: {e}")
+    else:
+        raise AssertionError("restore of a corrupt shard did not raise")
+    fell_back, _ = mgr.restore_latest(cpu_like)
+    if fell_back != step:
+        raise AssertionError(f"restore_latest gave step {fell_back}, not "
+                             f"{step}")
+    rec = {"step": step + 1, "leaves": len(named), "tensor_bytes": nbytes,
+           "file_bytes": file_bytes, "restore_card_s": restore_s,
+           "save_ms": save_ms, "wait_s": wait_s,
+           "restore_cpu_s": cpu_restore_s, "fell_back_to": fell_back}
+    print(f"[ckpt] {ARCH}: {len(named)} leaves, {nbytes / 1e9:.3f} GB of "
+          f"tensors, shard file {file_bytes / 1e9:.3f} GB; restore of step "
+          f"{step} into the card {restore_s:.3f} s; save() returned in "
+          f"{save_ms:.1f} ms (the synchronous host copy), wait() "
+          f"{wait_s:.3f} s (the background write and its CRC); restore into "
+          f"the CPU {cpu_restore_s:.3f} s, bit-equal to the card's tree; "
+          f"restore_latest fell back to step {fell_back}")
+    return rec
+
+
+def phase_train_driver() -> dict:
+    """13. The train driver at full width: uninterrupted, preempted,
+    resumed; then the checkpoint itself."""
+    t0 = time.perf_counter()
+    common = ["--arch", ARCH, "--device", DEVICE, "--seed", str(SEED),
+              "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+              "--remat", "full", "--lr", str(TRAIN_LR),
+              "--steps", str(DRIVER_STEPS)]
+    d = Path(tempfile.mkdtemp(prefix="repro_torch_ckpt_"))
+    try:
+        reset_counts()
+        full = driver_run("a", common + ["--ckpt-dir", str(d / "a"),
+                                         "--ckpt-every", "0"])
+        free = shutil.disk_usage(d).free
+        print(f"[driver] {free / 1e9:.1f} GB free on {d}'s file system")
+        every = ["--ckpt-dir", str(d / "b"), "--ckpt-every",
+                 str(DRIVER_EVERY)]
+        pre = driver_run("b", common + every + [
+            "--simulate-preemption-at", str(DRIVER_PREEMPT)])
+        resumed = driver_run("c", common + every)
+        counts = read_counts()
+        if pre.get("preempted_at") != DRIVER_PREEMPT:
+            raise AssertionError(f"(b) returned {pre}, not preempted at "
+                                 f"{DRIVER_PREEMPT}")
+        if resumed.get("resumed_from") != DRIVER_RESUME:
+            raise AssertionError(f"(c) resumed from "
+                                 f"{resumed.get('resumed_from')}, not "
+                                 f"{DRIVER_RESUME}")
+        if any(counts.values()):
+            raise AssertionError(f"the train driver launched kernels: "
+                                 f"{counts}")
+        want = np.asarray(full["losses"][DRIVER_RESUME:])
+        got = np.asarray(resumed["losses"])
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        pre_rel = float(np.max(np.abs(np.asarray(pre["losses"])
+                                      - full["losses"][:DRIVER_PREEMPT])
+                               / np.abs(full["losses"][:DRIVER_PREEMPT])))
+        print(f"[driver] resumed losses against the uninterrupted run's: "
+              f"max relative difference {rel:.3e} (rtol {RESUME_RTOL}); the "
+              f"preempted run's first {DRIVER_PREEMPT}: {pre_rel:.3e}; "
+              f"the loop a step: (a) {full['ms_per_step']:.1f} ms, (b) "
+              f"{pre['ms_per_step']:.1f} ms "
+              f"({pre['ms_per_step'] / full['ms_per_step']:.2f}x), (c) "
+              f"{resumed['ms_per_step']:.1f} ms; kernel launches {counts}")
+        np.testing.assert_allclose(got, want, rtol=RESUME_RTOL)
+        ckpt = phase_checkpoint(d / "b")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rec = {"a": full, "b": pre, "c": resumed, "ckpt": ckpt,
+           "free_gb": free / 1e9, "resume_rel": rel, "launches": counts,
+           "phase_s": time.perf_counter() - t0}
+    print(f"[driver] phase 13 took {rec['phase_s']:.1f} s")
+    print(f"[driver] {json.dumps(rec)}")
+    return rec
 
 
 def build_model(arch: str, n_layers: int | None = None):

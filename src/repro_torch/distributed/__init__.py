@@ -1,0 +1,9 @@
+"""Checkpointing, straggler policy and elastic re-stitching: the
+counterpart of ``repro.distributed``, less ``mesh_for_hosts`` and
+``replan_for_topology``, which wait for the mesh and the plan cache."""
+from .checkpoint import CheckpointManager
+from .elastic import gather_full_tree, reshard_checkpoint, scale_batch_schedule
+from .straggler import StragglerMonitor
+
+__all__ = ["CheckpointManager", "gather_full_tree", "reshard_checkpoint",
+           "scale_batch_schedule", "StragglerMonitor"]

@@ -43,9 +43,16 @@ class TrainStep:
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
-    """numpy arrays or tensors → int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device=device, dtype=torch.int64)
-            for k, v in batch.items()}
+    """numpy arrays or tensors → tensors on ``device``: integer entries
+    (``tokens``, ``labels``) as int64, floating ones (``frames``,
+    ``img_embeds``) as bf16, the cast the reference's ``LM._embed`` makes
+    (``src/repro/models/lm.py:248-255``)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        dtype = torch.bfloat16 if t.is_floating_point() else torch.int64
+        out[k] = t.to(device=device, dtype=dtype)
+    return out
 
 
 def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,

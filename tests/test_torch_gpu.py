@@ -687,3 +687,35 @@ def test_kernel_wrappers_refuse_gradients_on_card(cuda):
             with torch.no_grad():
                 fn(*ys, *extra, **kw)
     torch.cuda.synchronize()
+
+
+# -- checkpoints -------------------------------------------------------------
+
+def test_checkpoint_from_card_restores_on_cpu(cuda, tmp_path):
+    """A params-and-AdamW tree saved from the card (in the background)
+    restores on the CPU, and back onto the card, bit for bit."""
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.distributed.checkpoint import _flatten, _unflatten
+    from repro_torch.optim import AdamW
+    params, _ = LM(get_config("smollm-135m", smoke=True),
+                   device=cuda).init(0)
+    opt = AdamW()
+    state = opt.init(params)
+    opt.update(_unflatten(params, [torch.randn_like(v, dtype=torch.float32)
+                                   for _, v in _flatten(params)]),
+               state, params)
+    tree = {"params": params, "opt": state}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(3, tree)
+    mgr.wait()
+    named = _flatten(tree)
+    for device in ("cpu", cuda):
+        like = _unflatten(tree, [torch.zeros_like(v, device=device)
+                                 for _, v in named])
+        got = _flatten(mgr.restore(3, like))
+        for (k, a), (_, b) in zip(named, got):
+            assert b.device.type == torch.device(device).type, k
+            a, b = a.cpu(), b.cpu()
+            if a.dtype == torch.bfloat16:
+                a, b = a.view(torch.int16), b.view(torch.int16)
+            assert torch.equal(a, b), k
