@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's prefill and serving paths at the full width of three
-models, and its train step at the full width of two, with random weights
-from a seeded ``torch.Generator``:
+Drives the port's prefill and serving paths at the full width of five
+models, and its train step at the full width of three, with random
+weights from a seeded ``torch.Generator``:
 smollm-135m (30 layers, d 576, 9/3 heads, head_dim 64, d_ff 1536, vocab
 49152), xlstm-125m (12 layers: 10 mLSTM, 2 sLSTM; d 768, 4 heads,
 mLSTM head dim 384, chunk 256, vocab 50304, untied head) and
@@ -16,7 +16,12 @@ experts of d_ff 14336, top-2, vocab 65536; 26.05 B params, 52.1 GB in
 bf16); and the prefill of two more at full width and 2 layers, for
 their head dims: stablelm-3b (d 2560, 32/32 heads, head_dim 80,
 LayerNorm, rotary on 25%) and h2o-danube-3-4b (d 3840, 32/8 heads,
-head_dim 120, window 4096).  On the card:
+head_dim 120, window 4096); and the two non-token frontends at full
+width and depth: musicgen-large (48 layers, d 2048, 32/32 heads,
+head_dim 64, d_ff 8192, vocab 2048, LayerNorm, audio frames in place of
+tokens; 3.22 B params) and llama-3.2-vision-11b (40 layers, every 5th
+cross-attending to a 1600-row image; d 4096, 32/8 heads, head_dim 128,
+d_ff 14336, vocab 128256; 9.78 B params).  On the card:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: compiles every kernel under ``src/repro_torch/csrc`` with nvcc
@@ -29,7 +34,10 @@ head_dim 120, window 4096).  On the card:
    graph's replays (``device_ms``); flash attention at smollm's shapes,
    at jamba's prefill shape (B=4, S=1024, 32/8 heads, Dh 128, causal),
    and in bf16 at stablelm-3b's (32/32 heads, Dh 80) and
-   h2o-danube-3-4b's (32/8 heads, Dh 120, with window 96 and without);
+   h2o-danube-3-4b's (32/8 heads, Dh 120, with window 96 and without),
+   musicgen-large's (32/32 heads, Dh 64, causal) and llama-vision's
+   cross-attention (Sq 1024 over Skv 1600, 32/8 heads, Dh 128,
+   non-causal);
    the mLSTM chunkwise
    kernel at B=4, S=1024, H=4, Dh=384, chunk 256 at 2e-3, the
    reference's tolerance for it (no single PyTorch call computes it, so
@@ -139,10 +147,24 @@ head_dim 120, window 4096).  On the card:
    of its shard flipped: ``restore`` must raise
    ``CheckpointCorruptionError`` and ``restore_latest`` return the step
    before.  (e) No kernel may launch in (a)-(c): the driver trains on the
-   plain paths, as the reference's does.
+   plain paths, as the reference's does;
+14. musicgen-large: prefill as 4 on seeded bf16 frames (B=4, S=1024):
+   exactly 48 flash-attention launches and no RMSNorm (its norms are
+   LayerNorms); serving as 5 over 8 requests of frames only (16-128
+   positions of input, 16-64 new tokens), whose frames come from the
+   scheduler's ``Draws``; then 3 train steps at B=4, S=1024, remat full,
+   AdamW lr 1e-3: finite losses, ms a step and peak memory, no launch;
+15. llama-3.2-vision-11b: prefill as 4 with a seeded (4, 1600, 4096) bf16
+   image: exactly 40 flash-attention launches (32 causal, 8 non-causal
+   over the image) and 81 RMSNorm; serving as 5 over 8 requests (prompts
+   16-128, 16-64 new tokens) with a cache of 2048 positions, since the
+   offline oracle writes all 1600 image rows into each cross layer's
+   cache.  No training: 9.78 B params take 117 GB with AdamW's state.
+   Each phase's seconds on ``[frontends]`` lines.
 
 Each path's launch counts are set to 0 just before it and read just
-after; the kernels' ``launches`` are their sums over phases 4-10 (the
+after; the kernels' ``launches`` are their sums over phases 4-10, 14
+and 15 (the
 serving runs on graphs, which replays count, the eager ones only checked
 against them); the train runs of phases 12 and 13 must count none.
 Each model's graphs are released before the next model is built.
@@ -263,6 +285,16 @@ DRIVER_STEPS, DRIVER_EVERY, DRIVER_PREEMPT, DRIVER_RESUME = 10, 3, 7, 6
 #: the resumed run's losses against the uninterrupted run's (the
 #: reference's resume test, tests/test_substrate.py:171-172)
 RESUME_RTOL = 1e-4
+#: the frontends' models (phases 14 and 15), at full width and depth
+MARCH = "musicgen-large"
+VARCH = "llama-3.2-vision-11b"
+#: their serving traffic: 8 requests (musicgen's of frames only)
+F_REQUESTS, F_PROMPT_RANGE, F_GEN_RANGE = 8, (16, 128), (16, 64)
+#: llama-vision's cache: the offline oracle's scalar write puts all 1600
+#: image rows into each cross layer's cache, so it must hold them
+V_S_MAX = 2048
+#: musicgen's train steps (its state is ~38.7 GB: 3.22 B params x 12 B)
+M_TRAIN_B, M_TRAIN_S, M_TRAIN_STEPS = 4, 1024, 3
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -403,49 +435,59 @@ def rmsnorm_case(R: int, D: int, dtype) -> dict:
     return rec
 
 
-def mha_case(B: int, S: int, H: int, KVH: int, Dh: int, window, dtype
-             ) -> dict:
+def mha_case(B: int, S: int, H: int, KVH: int, Dh: int, window, dtype,
+             Skv: int | None = None, causal: bool = True) -> dict:
+    """Flash attention at S queries over ``Skv`` keys (S by default),
+    causal or not (cross-attention: not, over the image's rows)."""
+    Skv = Skv or S
     gen = torch.Generator(device=DEVICE).manual_seed(B * S + H + Dh)
     q = torch.randn((B, S, H, Dh), generator=gen, device=DEVICE).to(dtype)
-    k = torch.randn((B, S, KVH, Dh), generator=gen, device=DEVICE).to(dtype)
-    v = torch.randn((B, S, KVH, Dh), generator=gen, device=DEVICE).to(dtype)
+    k = torch.randn((B, Skv, KVH, Dh), generator=gen,
+                    device=DEVICE).to(dtype)
+    v = torch.randn((B, Skv, KVH, Dh), generator=gen,
+                    device=DEVICE).to(dtype)
     qk, kk, vk = (t.contiguous() for t in fa_ops.to_kernel_layout(q, k, v))
-    tag = f"mha B={B} S={S} H={H}/{KVH} Dh={Dh} window={window}"
-    err = check_close(
-        f"{tag} {dtype}",
-        fa_ops.flash_attention(qk, kk, vk, causal=True, window=window),
-        attention_ref(qk, kk, vk, causal=True, window=window), dtype)
+    tag = (f"mha B={B} S={S}" + ("" if Skv == S else f" Skv={Skv}")
+           + f" H={H}/{KVH} Dh={Dh} window={window}"
+           + ("" if causal else " non-causal"))
+    kw = dict(causal=causal, window=window)
+    err = check_close(f"{tag} {dtype}",
+                      fa_ops.flash_attention(qk, kk, vk, **kw),
+                      attention_ref(qk, kk, vk, **kw), dtype)
     # the same mha through the model-layout wrapper
-    check_close(f"{tag} {dtype} (mha)",
-                fa_ops.mha(q, k, v, causal=True, window=window),
-                fa_ops.from_kernel_layout(attention_ref(
-                    qk, kk, vk, causal=True, window=window), B), dtype)
-    pos = torch.arange(S, device=DEVICE)
-    mask = pos[None, :] <= pos[:, None]
+    check_close(f"{tag} {dtype} (mha)", fa_ops.mha(q, k, v, **kw),
+                fa_ops.from_kernel_layout(attention_ref(qk, kk, vk, **kw),
+                                          B), dtype)
+    qpos = torch.arange(S, device=DEVICE)[:, None]
+    kpos = torch.arange(Skv, device=DEVICE)[None, :]
+    mask = (kpos <= qpos) if causal else torch.ones(
+        (S, Skv), dtype=torch.bool, device=DEVICE)
     if window is not None:
-        mask &= pos[None, :] > pos[:, None] - window
+        mask &= kpos > qpos - window
     pairs = int(mask.sum())
     ops = 2 * (Dh + Dh) * pairs * B * H
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * ELT[dtype]
     b, by = bound_ms(nbytes, ops, dtype)
-    kl, vl = kk[:, None], vk[:, None]          # (B·KVH, 1, S, Dh)
+    kl, vl = kk[:, None], vk[:, None]          # (B·KVH, 1, Skv, Dh)
 
     def library():
         if window is None:
-            return F.scaled_dot_product_attention(qk, kl, vl, is_causal=True,
+            return F.scaled_dot_product_attention(qk, kl, vl,
+                                                  is_causal=causal,
                                                   enable_gqa=True)
         return F.scaled_dot_product_attention(qk, kl, vl, attn_mask=mask,
                                               enable_gqa=True)
     rec = {"max_abs_err": err,
-           "ms": time_ms(lambda: fa_ops.flash_attention(
-               qk, kk, vk, causal=True, window=window), iters=20),
-           "plain_ms": time_ms(lambda: attention_ref(
-               qk, kk, vk, causal=True, window=window), iters=10),
+           "ms": time_ms(lambda: fa_ops.flash_attention(qk, kk, vk, **kw),
+                         iters=20),
+           "plain_ms": time_ms(lambda: attention_ref(qk, kk, vk, **kw),
+                               iters=10),
            "library_ms": time_ms(library, iters=20),
            "bound_ms": b, "bound_by": by}
     print(f"[kernels] {tag} {str(dtype)[6:]}: err {err:.3g}, kernel "
           f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, sdpa "
-          f"{rec['library_ms']:.4f} ms, bound {b:.3g} ms ({by})")
+          f"{rec['library_ms']:.4f} ms, bound {b:.3g} ms ({by}; "
+          f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP)")
     return rec
 
 
@@ -621,6 +663,15 @@ def phase_kernels() -> dict:
         for R in (SLOTS, PREFILL_B * PREFILL_S):
             out[("rmsnorm", R, jcfg.d_model, dtype)] = rmsnorm_case(
                 R, jcfg.d_model, dtype)
+    mcfg, vcfg = get_config(MARCH), get_config(VARCH)
+    out[("mha", MARCH)] = mha_case(PREFILL_B, PREFILL_S, mcfg.n_heads,
+                                   mcfg.n_kv_heads, mcfg.resolved_head_dim,
+                                   None, torch.bfloat16)
+    out[("mha", "cross")] = mha_case(PREFILL_B, PREFILL_S, vcfg.n_heads,
+                                     vcfg.n_kv_heads,
+                                     vcfg.resolved_head_dim, None,
+                                     torch.bfloat16, Skv=vcfg.n_img_tokens,
+                                     causal=False)
     mb = jcfg.mamba
     for x_dtype in DTYPES:
         out[("ssd", x_dtype)] = ssd_case(PREFILL_B, PREFILL_S,
@@ -663,7 +714,8 @@ def expected_prefill_counts(cfg) -> dict:
     kinds = cfg.layer_kinds()
     norms = cfg.n_layers + 1 + sum(f != "none" for _, f in kinds)
     return {"rmsnorm": norms if cfg.norm == "rms" else 0,
-            "flash_attention": sum(m == "attn" for m, _ in kinds),
+            "flash_attention": sum(m in ("attn", "xattn")
+                                   for m, _ in kinds),
             "mlstm_chunk": sum(m == "mlstm" for m, _ in kinds),
             "ssd_scan": sum(m == "mamba" for m, _ in kinds),
             "moe_gmm": 2 * sum(f == "moe" for _, f in kinds)}
@@ -710,10 +762,26 @@ class Routing:
             moe_mod.router_topk = self._orig
 
 
+def step_inputs(cfg, B: int, S: int, gen) -> dict:
+    """Seeded inputs of ``B`` rows of ``S`` positions on the card: tokens,
+    or bf16 frames for the audio frontend, and the vision frontend's
+    bf16 image."""
+    if cfg.frontend == "audio_frames":
+        batch = {"frames": torch.randn((B, S, cfg.d_model), generator=gen,
+                                       device=DEVICE).to(torch.bfloat16)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                         device=DEVICE)}
+    if cfg.frontend == "vision":
+        batch["img_embeds"] = torch.randn(
+            (B, cfg.n_img_tokens, cfg.d_model), generator=gen,
+            device=DEVICE).to(torch.bfloat16)
+    return batch
+
+
 def prefill_batch(cfg) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    return {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
-                                    generator=gen, device=DEVICE)}
+    return step_inputs(cfg, PREFILL_B, PREFILL_S, gen)
 
 
 def phase_prefill(lm_k: LM, lm_p: LM, params, iters: int = 5,
@@ -961,16 +1029,15 @@ def first_step_diff(lm_k: LM, params, s_max: int, vector_pos: bool,
     g = graphs.step_graph(lm_k, params, SLOTS, s_max, vector_pos, use=use)
     g.reset()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    toks = torch.randint(0, lm_k.cfg.vocab, (SLOTS, 1), generator=gen,
-                         device=DEVICE)
+    inputs = step_inputs(lm_k.cfg, SLOTS, 1, gen)
     if vector_pos:
         pos = torch.zeros(SLOTS, dtype=torch.int32, device=DEVICE)
         active = torch.ones(SLOTS, dtype=torch.bool, device=DEVICE)
-        got = g.run(toks, pos, active)
-        batch = {"tokens": toks, "pos": pos, "active": active}
+        got = g.run(pos=pos, active=active, **inputs)
+        batch = {**inputs, "pos": pos, "active": active}
     else:
-        got = g.run(toks, 0)
-        batch = {"tokens": toks,
+        got = g.run(pos=0, **inputs)
+        batch = {**inputs,
                  "pos": torch.tensor(0, dtype=torch.int32, device=DEVICE)}
     want, _ = lm_k.decode_step(params, batch, lm_k.init_caches(
         SLOTS, s_max, vector_pos=vector_pos))
@@ -1039,9 +1106,10 @@ def print_served(tag: str, mode: str, run: Served, ms_step: float,
 
 
 def phase_serve(lm_k: LM, params, device: dict, n_requests: int = REQUESTS,
-                prompt_range=PROMPT_RANGE, gen_range=GEN_RANGE) -> dict:
+                prompt_range=PROMPT_RANGE, gen_range=GEN_RANGE,
+                s_max: int | None = None) -> dict:
     cfg = lm_k.cfg
-    s_max = prefill_bucket(prompt_range[1], 16) + gen_range[1]
+    s_max = s_max or prefill_bucket(prompt_range[1], 16) + gen_range[1]
     trace = make_trace(cfg, n_requests, seed=SEED,
                        prompt_len_range=prompt_range, gen_range=gen_range)
 
@@ -1049,7 +1117,8 @@ def phase_serve(lm_k: LM, params, device: dict, n_requests: int = REQUESTS,
         b = ContinuousBatcher(lm_k, params, slots=SLOTS, s_max=s_max,
                               seed=SEED, graphs=graphs_on)
         for t in trace:
-            b.submit(t["prompt"], t["max_new"], temperature=t["temperature"])
+            b.submit(t["prompt"], t["max_new"], prompt_len=t["prompt_len"],
+                     temperature=t["temperature"])
         return b.run()
     margins = Margins()
     eager = serve_run(lambda: margins.run(lambda: serve(False)))
@@ -1272,6 +1341,8 @@ def main() -> int:
     phase_train()
     torch.cuda.empty_cache()
     phase_train_driver()
+    torch.cuda.empty_cache()
+    paths += phase_frontends(device)
 
     main_path = {k: sum(p[k] for p in paths) for k in COUNTED}
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -1289,6 +1360,7 @@ def main() -> int:
                 f"{hcfg.n_kv_heads} Dh={hcfg.resolved_head_dim} causal"
                 + ("" if window is None else f" window {window}")
                 + f" bf16 ({arch} prefill)")
+    mcfg, vcfg = get_config(MARCH), get_config(VARCH)
     xH = xcfg.n_heads
     xDh = xcfg.xlstm.proj_factor_mlstm * xcfg.d_model // xH
     kernels = [
@@ -1321,6 +1393,16 @@ def main() -> int:
                         **cases[("mha", PREFILL_S, jcfg.n_heads,
                                  jcfg.n_kv_heads, None, torch.bfloat16)]),
              head_dims=hd,
+             musicgen=sub(("mha", MARCH),
+                          f"B={PREFILL_B} S={PREFILL_S} H={mcfg.n_heads}/"
+                          f"{mcfg.n_kv_heads} Dh={mcfg.resolved_head_dim} "
+                          "causal bf16 (musicgen-large prefill)"),
+             cross=sub(("mha", "cross"),
+                       f"B={PREFILL_B} Sq={PREFILL_S} Skv="
+                       f"{vcfg.n_img_tokens} H={vcfg.n_heads}/"
+                       f"{vcfg.n_kv_heads} Dh={vcfg.resolved_head_dim} "
+                       "non-causal bf16 (llama-3.2-vision-11b prefill, "
+                       "cross-attention layers)"),
              **cases[("mha", PREFILL_S, cfg.n_heads, cfg.n_kv_heads, None,
                       torch.bfloat16)]),
         dict(name="mlstm_chunk", route="cuda",
@@ -1814,6 +1896,78 @@ def phase_train_driver() -> dict:
     print(f"[driver] phase 13 took {rec['phase_s']:.1f} s")
     print(f"[driver] {json.dumps(rec)}")
     return rec
+
+
+class FrameBatches:
+    """Seeded train batches of the frontends on the card: ``batch_at(i)``
+    holds the inputs of ``step_inputs`` and ``labels``, from seed
+    ``SEED + i``."""
+
+    def __init__(self, cfg, B: int, S: int):
+        self.cfg, self.B, self.S = cfg, B, S
+
+    def batch_at(self, i: int) -> dict:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + i)
+        batch = step_inputs(self.cfg, self.B, self.S, gen)
+        batch["labels"] = torch.randint(0, self.cfg.vocab, (self.B, self.S),
+                                        generator=gen, device=DEVICE)
+        return batch
+
+
+def phase_frontend_train() -> dict:
+    """14 (c). musicgen-large trained at full width and depth on seeded
+    frames: ``M_TRAIN_STEPS`` steps at B=4, S=1024, remat full, AdamW lr
+    1e-3; the losses finite and no kernel launched."""
+    cfg = get_config(MARCH)
+    step = build_train_step(cfg, opt=AdamW(lr=TRAIN_LR), remat="full",
+                            device=DEVICE)
+    params, _ = step.lm.init(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, _, losses, ms = train_run(step, params, step.opt.init(params),
+                                 FrameBatches(cfg, M_TRAIN_B, M_TRAIN_S),
+                                 M_TRAIN_STEPS, lambda i: 1.0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if any(counts.values()) or not all(np.isfinite(losses)):
+        raise AssertionError(f"{MARCH} train: launches {counts}, losses "
+                             f"{losses}")
+    print(f"[train] {cfg.name} B={M_TRAIN_B} S={M_TRAIN_S} remat full, "
+          f"AdamW lr {TRAIN_LR}: losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; step ms "
+          + " ".join(f"{x:.1f}" for x in ms) + f"; peak memory {peak:.2f} "
+          f"GB; kernel launches {counts}")
+    del step, params
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": ms, "peak_gb": peak}
+
+
+def phase_frontends(device: dict) -> list:
+    """14-15. musicgen-large (audio frames) and llama-3.2-vision-11b
+    (cross-attention to an image) at full width and depth: prefill,
+    serving eager and on graphs, and musicgen's train steps.  Returns
+    the launch counts of each path."""
+    paths = []
+    for arch in (MARCH, VARCH):
+        t0 = time.perf_counter()
+        cfg, lm_k, lm_p, params = build_model(arch)
+        paths.append(phase_prefill(lm_k, lm_p, params, iters=2)[0])
+        t1 = time.perf_counter()
+        paths.append(phase_serve(
+            lm_k, params, device, F_REQUESTS, F_PROMPT_RANGE, F_GEN_RANGE,
+            s_max=V_S_MAX if cfg.frontend == "vision" else None))
+        graphs.release()
+        del lm_k, lm_p, params
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        print(f"[frontends] {arch}: build and prefill {t1 - t0:.1f} s, "
+              f"serving {t2 - t1:.1f} s")
+        if cfg.frontend == "audio_frames":
+            phase_frontend_train()
+            print(f"[frontends] {arch}: train "
+                  f"{time.perf_counter() - t2:.1f} s")
+    return paths
 
 
 def build_model(arch: str, n_layers: int | None = None):

@@ -5,9 +5,11 @@
 ``lax.scan`` (``models/xlstm.py``).
 
 A graph bakes in the address of every tensor it reads or writes.  So a
-:class:`StepGraph` owns static inputs (``tokens`` (B, 1) int64, ``pos``
-as a scalar or a (B,) vector, ``active`` (B,) bool), a static cache tree
-from ``LM.init_caches`` and a static ``logits`` output.  Its step is
+:class:`StepGraph` owns static inputs (``tokens`` (B, 1) int64, or
+``frames`` (B, 1, d_model) bf16 for the audio-frames frontend;
+``img_embeds`` (B, n_img_tokens, d_model) bf16 for the vision frontend;
+``pos`` as a scalar or a (B,) vector, ``active`` (B,) bool), a static
+cache tree from ``LM.init_caches`` and a static ``logits`` output.  Its step is
 ``LM.decode_step`` followed by a copy of every returned cache leaf that
 is not the input leaf itself back into that input leaf, so each ``run``
 advances the caches in place.  On CUDA the step is captured once and
@@ -131,8 +133,16 @@ class StepGraph:
     def __init__(self, lm, params, B: int, s_max: int, vector_pos: bool):
         self.lm, self.params = lm, params
         dev = lm.device
+        cfg = lm.cfg
         self.caches = lm.init_caches(B, s_max, vector_pos=vector_pos)
-        self.tokens = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+        audio = cfg.frontend == "audio_frames"
+        self.tokens = (None if audio else
+                       torch.zeros((B, 1), dtype=torch.int64, device=dev))
+        self.frames = (torch.zeros((B, 1, cfg.d_model), dtype=BF16,
+                                   device=dev) if audio else None)
+        self.img_embeds = (torch.zeros((B, cfg.n_img_tokens, cfg.d_model),
+                                       dtype=BF16, device=dev)
+                           if cfg.frontend == "vision" else None)
         self.pos = torch.zeros((B,) if vector_pos else (), dtype=torch.int32,
                                device=dev)
         self.active = (torch.ones(B, dtype=torch.bool, device=dev)
@@ -145,10 +155,10 @@ class StepGraph:
             self.graph = Graph(self._step, self._warmup, dev)
 
     def _batch(self) -> dict:
-        batch = {"tokens": self.tokens, "pos": self.pos}
-        if self.active is not None:
-            batch["active"] = self.active
-        return batch
+        batch = {"tokens": self.tokens, "frames": self.frames,
+                 "img_embeds": self.img_embeds, "pos": self.pos,
+                 "active": self.active}
+        return {k: v for k, v in batch.items() if v is not None}
 
     def _step(self) -> None:
         logits, new = self.lm.decode_step(self.params, self._batch(),
@@ -161,11 +171,17 @@ class StepGraph:
         self.lm.decode_step(self.params, self._batch(),
                             _map_cache(torch.clone, self.caches))
 
-    def run(self, tokens, pos, active=None) -> torch.Tensor:
-        """One step: ``tokens`` (B, 1) and ``active`` (B,) as tensors or
-        numpy arrays, ``pos`` as those or an int.  Returns the static
-        ``logits`` (B, 1, vocab), which the next run overwrites."""
-        self.tokens.copy_(torch.as_tensor(tokens))
+    def run(self, tokens=None, pos=0, active=None, frames=None,
+            img_embeds=None) -> torch.Tensor:
+        """One step: ``tokens`` (B, 1) (or ``frames`` (B, 1, d_model)) and
+        ``active`` (B,) as tensors or numpy arrays, ``pos`` as those or an
+        int.  ``img_embeds``, if given, replaces the static image; else
+        the step reads the one it holds.  Returns the static ``logits``
+        (B, 1, vocab), which the next run overwrites."""
+        for buf, given in ((self.tokens, tokens), (self.frames, frames),
+                           (self.img_embeds, img_embeds)):
+            if given is not None:
+                buf.copy_(torch.as_tensor(given))
         if isinstance(pos, int):
             self.pos.fill_(pos)
         else:

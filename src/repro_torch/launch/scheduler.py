@@ -33,6 +33,14 @@ integer mix of ``(seed, request id, input position)``, so a request's
 tokens do not depend on its co-tenants and the whole trace replays from
 ``seed``.  The draws are not JAX's: sampled tokens are held to this
 package's own offline decode, greedy tokens to the reference's.
+
+Frontends: an audio-frames request has no prompt (``prompt=None``); its
+input at every position, prompt and generated alike, is a frame drawn for
+(request, position), and a vision request carries one image drawn for the
+request.  Both come from a :class:`Draws`, seeded as the sampling is;
+the batcher, :func:`decode_offline` and :func:`run_static` take any
+object with its two methods (``draws=``), so a test can hand in the
+reference's own draws.
 """
 from __future__ import annotations
 
@@ -50,6 +58,9 @@ __all__ = ["Request", "ServeReport", "ContinuousBatcher", "decode_offline",
            "run_static", "prefill_bucket"]
 
 _MASK64 = (1 << 64) - 1
+#: the image draw's tag in place of a position (the reference's value)
+_IMG_TAG = 0x494D47
+BF16 = torch.bfloat16
 
 
 def prefill_bucket(length: int, minimum: int = 16) -> int:
@@ -66,7 +77,8 @@ class Request:
     rid: int
     prompt_len: int
     max_new: int
-    #: prompt token ids, shape (prompt_len,)
+    #: prompt token ids, shape (prompt_len,); ``None`` for the
+    #: audio-frames frontend (its frames come from the ``Draws``)
     prompt: np.ndarray | None = None
     temperature: float = 0.0
     #: generated token ids, in order.
@@ -152,6 +164,35 @@ def _sample(logits_row: np.ndarray, seed: int, rid: int, pos: int,
     return int(np.argmax(logits_row, axis=-1))
 
 
+class Draws:
+    """The frontends' inputs of each request, as the reference's
+    ``_frames_at`` and ``_image_of`` give them: the audio frame at each
+    position and the image, standard normal, each from a
+    ``torch.Generator`` seeded with ``_draw_seed(seed, rid, pos)`` (the
+    image with ``_IMG_TAG`` for ``pos``), drawn on the host and rounded
+    to bf16.  ``frames_at(rid, pos)`` is ``(1, d_model)``,
+    ``image_of(rid)`` ``(n_img_tokens, d_model)``; a replacement may
+    return numpy arrays too."""
+
+    def __init__(self, seed: int, cfg):
+        self.seed, self.cfg = seed, cfg
+
+    def _normal(self, rid: int, pos: int, rows: int) -> torch.Tensor:
+        gen = torch.Generator().manual_seed(_draw_seed(self.seed, rid, pos))
+        return torch.randn((rows, self.cfg.d_model), generator=gen).to(BF16)
+
+    def frames_at(self, rid: int, pos: int) -> torch.Tensor:
+        return self._normal(rid, pos, 1)
+
+    def image_of(self, rid: int) -> torch.Tensor:
+        return self._normal(rid, _IMG_TAG, self.cfg.n_img_tokens)
+
+
+def _bf16(x, device) -> torch.Tensor:
+    """A draw (tensor or numpy array) as a bf16 tensor on ``device``."""
+    return torch.as_tensor(x).to(device=device, dtype=BF16)
+
+
 def _host_rows(logits: torch.Tensor) -> np.ndarray:
     """(B, 1, vocab) device logits → (B, vocab) f32 numpy (exact for bf16)."""
     return logits[:, -1].float().cpu().numpy()
@@ -182,11 +223,14 @@ class ContinuousBatcher:
         graphs: ``None`` or ``True`` steps through ``StepGraph``s
             (captured CUDA graphs on CUDA, the direct form on the CPU);
             ``False`` runs the eager step.
+        draws: the frontends' frames and images (:class:`Draws` of
+            ``seed`` by default).
     """
 
     def __init__(self, lm, params, *, slots: int, s_max: int,
                  seed: int = 0, eos_id: int | None = None,
-                 prefill_min: int = 16, graphs: bool | None = None):
+                 prefill_min: int = 16, graphs: bool | None = None,
+                 draws=None):
         _check_batchable(lm.cfg)
         self.lm, self.params = lm, params
         self.cfg = lm.cfg
@@ -194,6 +238,8 @@ class ContinuousBatcher:
         self.slots, self.s_max, self.seed = slots, s_max, seed
         self.eos_id = eos_id
         self.prefill_min = prefill_min
+        self.draws = draws or Draws(seed, lm.cfg)
+        self.audio = lm.cfg.frontend == "audio_frames"
 
         self.graphs = graphs is not False
         self._slot_graph = None
@@ -202,8 +248,15 @@ class ContinuousBatcher:
                                           use="slots")
             self._slot_graph.reset()
             self.caches = self._slot_graph.caches
+            #: each slot's image, kept on the device (the reference keeps
+            #: it on the host in f32): the graph's own static input
+            self.img = self._slot_graph.img_embeds
         else:
             self.caches = lm.init_caches(slots, s_max, vector_pos=True)
+            self.img = (torch.zeros((slots, lm.cfg.n_img_tokens,
+                                     lm.cfg.d_model), dtype=BF16,
+                                    device=self.device)
+                        if lm.cfg.frontend == "vision" else None)
         self.queue: deque[Request] = deque()
         self._next_rid = 0
         self.pos = np.zeros(slots, np.int32)
@@ -212,11 +265,19 @@ class ContinuousBatcher:
         self.slot_req: list[Request | None] = [None] * slots
 
     # -- submission ------------------------------------------------------
-    def submit(self, prompt: np.ndarray, max_new: int, *,
+    def submit(self, prompt: np.ndarray | None, max_new: int, *,
+               prompt_len: int | None = None,
                temperature: float = 0.0) -> Request:
-        prompt = np.asarray(prompt, np.int64).reshape(-1)
-        prompt_len = len(prompt)
-        if prompt_len < 1:
+        """Queue a request.  The audio-frames frontend takes
+        ``prompt=None`` and a ``prompt_len``: its inputs are drawn."""
+        if prompt is not None:
+            prompt = np.asarray(prompt, np.int64).reshape(-1)
+            prompt_len = len(prompt)
+        elif not self.audio:
+            raise ValueError(f"{self.cfg.name} reads tokens: a prompt is "
+                             "needed (only the audio-frames frontend draws "
+                             "its inputs)")
+        if prompt_len is None or prompt_len < 1:
             raise ValueError("empty prompt")
         if prompt_len + max_new > self.s_max:
             raise ValueError(f"request needs {prompt_len + max_new} "
@@ -239,12 +300,25 @@ class ContinuousBatcher:
         now = time.perf_counter()
         lengths = np.array([r.prompt_len for _, r in pairs], np.int64)
         steps = int(lengths.max())
-        toks = np.zeros((steps, k, 1), np.int64)
-        for i, (_slot, req) in enumerate(pairs):
+        # the inputs of every step, staged on the device once; each step
+        # reads its row (frames past a prompt's end are zeros)
+        if self.audio:
+            xs = torch.zeros((steps, k, 1, self.cfg.d_model), dtype=BF16)
+            for i, (_slot, req) in enumerate(pairs):
+                for t in range(req.prompt_len):
+                    xs[t, i] = torch.as_tensor(
+                        self.draws.frames_at(req.rid, t))
+        else:
+            xs = torch.zeros((steps, k, 1), dtype=torch.int64)
+            for i, (_slot, req) in enumerate(pairs):
+                xs[:req.prompt_len, i, 0] = torch.as_tensor(req.prompt)
+        for _slot, req in pairs:
             req.t_admit = now
-            toks[:req.prompt_len, i, 0] = req.prompt
-        # staged on the device once; each step reads its row
-        xs = torch.as_tensor(toks, device=dev)
+        xs = xs.to(dev)
+        key = "frames" if self.audio else "tokens"
+        img = (torch.stack([_bf16(self.draws.image_of(r.rid), dev)
+                            for _, r in pairs])
+               if self.img is not None else None)
         act = torch.as_tensor(np.arange(steps)[:, None] < lengths[None],
                               device=dev)
         if self.graphs:
@@ -252,18 +326,22 @@ class ContinuousBatcher:
                                use="prefill")
             graph.reset()
             small = graph.caches
+            if img is not None:
+                graph.img_embeds.copy_(img)
 
             def step(t):
-                return graph.run(xs[t], t, act[t])
+                return graph.run(pos=t, active=act[t], **{key: xs[t]})
         else:
             small = lm.init_caches(k, self.s_max, vector_pos=True)
 
             def step(t):
                 nonlocal small
-                batch = {"tokens": xs[t],
+                batch = {key: xs[t],
                          "pos": torch.full((k,), t, dtype=torch.int32,
                                            device=dev),
                          "active": act[t]}
+                if img is not None:
+                    batch["img_embeds"] = img
                 logits, small = lm.decode_step(self.params, batch, small)
                 return logits
         # each request's logits at its last prompt position, in a buffer
@@ -288,6 +366,8 @@ class ContinuousBatcher:
                         dst[:, slot_vec] = src
                     else:
                         dst[slot_vec] = src
+        if img is not None:
+            self.img[slot_vec] = img
         last_np = last.float().cpu().numpy()
         t_first = time.perf_counter()
         for i, (slot, req) in enumerate(pairs):
@@ -319,11 +399,29 @@ class ContinuousBatcher:
         return False
 
     # -- main loop -------------------------------------------------------
+    def _frames(self) -> torch.Tensor:
+        """(slots, 1, d_model): each active slot's frame at its position,
+        zeros in the free slots (as the reference feeds them)."""
+        out = torch.zeros((self.slots, 1, self.cfg.d_model), dtype=BF16)
+        for slot in np.flatnonzero(self.active):
+            out[slot] = torch.as_tensor(self.draws.frames_at(
+                self.slot_req[slot].rid, int(self.pos[slot])))
+        return out.to(self.device)
+
+    def _inputs(self) -> dict:
+        """This step's ``tokens``, or ``frames`` for the audio frontend."""
+        if self.audio:
+            return {"frames": self._frames()}
+        return {"tokens": torch.as_tensor(self.tokens, device=self.device)}
+
     def _decode_batch(self) -> dict:
         dev = self.device
-        return {"pos": torch.as_tensor(self.pos, device=dev),
-                "active": torch.as_tensor(self.active, device=dev),
-                "tokens": torch.as_tensor(self.tokens, device=dev)}
+        batch = {"pos": torch.as_tensor(self.pos, device=dev),
+                 "active": torch.as_tensor(self.active, device=dev),
+                 **self._inputs()}
+        if self.img is not None:
+            batch["img_embeds"] = self.img
+        return batch
 
     def run(self, max_steps: int | None = None) -> ServeReport:
         """Drain the queue: admit → step → sample/evict until every
@@ -358,8 +456,8 @@ class ContinuousBatcher:
             # one decode step over the whole batch
             t0 = time.perf_counter()
             if self._slot_graph is not None:
-                logits = self._slot_graph.run(self.tokens, self.pos,
-                                              self.active)
+                logits = self._slot_graph.run(pos=self.pos, active=self.active,
+                                              **self._inputs())
             else:
                 logits, self.caches = self.lm.decode_step(
                     self.params, self._decode_batch(), self.caches)
@@ -392,8 +490,8 @@ class ContinuousBatcher:
 
 def decode_offline(lm, params, req: Request, *, seed: int, s_max: int,
                    eos_id: int | None = None,
-                   on_logits: Callable[[np.ndarray], None] | None = None
-                   ) -> list[int]:
+                   on_logits: Callable[[np.ndarray], None] | None = None,
+                   draws=None) -> list[int]:
     """Single-request lock-step decode — the scheduler's oracle.
 
     A different code path from the batcher: scalar cache positions
@@ -401,15 +499,25 @@ def decode_offline(lm, params, req: Request, *, seed: int, s_max: int,
     gating, batch 1 throughout.  ``on_logits`` receives the f32 logits row
     each generated token was drawn from.  Like the reference's, it runs
     every config, MoE included: at batch 1 an expert's capacity (at least
-    8 slots, capped at the one token) drops nothing."""
+    8 slots, capped at the one token) drops nothing.  ``draws`` as in
+    :class:`ContinuousBatcher`."""
     dev = lm.device
+    cfg = lm.cfg
+    draws = draws or Draws(seed, cfg)
     caches = lm.init_caches(1, s_max)
+    img = (_bf16(draws.image_of(req.rid), dev)[None]
+           if cfg.frontend == "vision" else None)
 
     def step(t: int, tok: int) -> np.ndarray:
         nonlocal caches
-        batch = {"pos": torch.tensor(t, dtype=torch.int32, device=dev),
-                 "tokens": torch.tensor([[tok]], dtype=torch.int64,
-                                        device=dev)}
+        batch = {"pos": torch.tensor(t, dtype=torch.int32, device=dev)}
+        if cfg.frontend == "audio_frames":
+            batch["frames"] = _bf16(draws.frames_at(req.rid, t), dev)[None]
+        else:
+            batch["tokens"] = torch.tensor([[tok]], dtype=torch.int64,
+                                           device=dev)
+        if img is not None:
+            batch["img_embeds"] = img
         logits, caches = lm.decode_step(params, batch, caches)
         return _host_rows(logits)[0]
 
@@ -420,7 +528,7 @@ def decode_offline(lm, params, req: Request, *, seed: int, s_max: int,
 
     row = None
     for t in range(req.prompt_len):
-        row = step(t, int(req.prompt[t]))
+        row = step(t, 0 if req.prompt is None else int(req.prompt[t]))
     out: list[int] = []
     tok = draw(row, req.prompt_len - 1)
     out.append(tok)
@@ -436,18 +544,22 @@ def decode_offline(lm, params, req: Request, *, seed: int, s_max: int,
 def run_static(lm, params, requests: list[Request], *, seed: int,
                s_max: int, slots: int | None = None,
                eos_id: int | None = None,
-               graphs: bool | None = None) -> ServeReport:
+               graphs: bool | None = None, draws=None) -> ServeReport:
     """The lock-step baseline at the same batch width: requests go in
     waves of ``slots`` rows in submission order, each wave's prompts
     padded to its longest, and every row decodes until the wave's largest
     ``max_new``.  The report counts only useful tokens (each request's
-    own ``max_new``).  ``graphs`` as in :class:`ContinuousBatcher`: one
-    ``StepGraph`` per wave width, at a scalar position."""
+    own ``max_new``).  ``graphs`` and ``draws`` as in
+    :class:`ContinuousBatcher`: one ``StepGraph`` per wave width, at a
+    scalar position."""
     slots = slots or len(requests)
     rep = ServeReport(slots=slots)
     if not requests:
         return rep
     dev = lm.device
+    cfg = lm.cfg
+    draws = draws or Draws(seed, cfg)
+    audio = cfg.frontend == "audio_frames"
     t_start = time.perf_counter()
     for w0 in range(0, len(requests), slots):
         wave = requests[w0:w0 + slots]
@@ -456,22 +568,36 @@ def run_static(lm, params, requests: list[Request], *, seed: int,
         g_max = max(r.max_new for r in wave)
         prompts = np.zeros((B, l_max), np.int64)
         for i, r in enumerate(wave):
-            prompts[i, :r.prompt_len] = r.prompt
+            if r.prompt is not None:
+                prompts[i, :r.prompt_len] = r.prompt
+        img = (torch.stack([_bf16(draws.image_of(r.rid), dev)
+                            for r in wave])
+               if cfg.frontend == "vision" else None)
+
+        def inputs(t: int, toks) -> dict:
+            """Step ``t``'s tokens, or every row's frame at ``t``."""
+            if audio:
+                return {"frames": torch.stack([
+                    _bf16(draws.frames_at(r.rid, t), dev) for r in wave])}
+            return {"tokens": torch.as_tensor(toks, device=dev)}
 
         if graphs is not False:
             graph = step_graph(lm, params, B, s_max, False)
             graph.reset()
+            if img is not None:
+                graph.img_embeds.copy_(img)
 
             def step(t: int, toks) -> torch.Tensor:
-                return graph.run(toks, t)
+                return graph.run(pos=t, **inputs(t, toks))
         else:
             caches = lm.init_caches(B, s_max)
 
             def step(t: int, toks) -> torch.Tensor:
                 nonlocal caches
                 batch = {"pos": torch.tensor(t, dtype=torch.int32,
-                                             device=dev),
-                         "tokens": torch.as_tensor(toks, device=dev)}
+                                             device=dev), **inputs(t, toks)}
+                if img is not None:
+                    batch["img_embeds"] = img
                 logits, caches = lm.decode_step(params, batch, caches)
                 return logits
 

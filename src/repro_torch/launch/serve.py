@@ -10,6 +10,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba-v0.1-52b --smoke --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch musicgen-large --smoke --device cpu
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama-3.2-vision-11b --smoke --device cpu
+
 Counterpart of ``repro.launch.serve`` without the sharding plan: on one
 card ``constrain`` is a no-op, and fetching and applying a plan wait for
 ROADMAP A8/A14, so the driver prints ``plan: skipped``.  The model runs
@@ -30,13 +36,14 @@ compiles; the graphs captured and their capture seconds are printed
 beside the results.
 
 The request trace comes from its own numpy stream; the parameters from a
-``torch.Generator`` seeded with ``--seed``; sampling draws are keyed per
-(request, position) inside the scheduler.  MoE configs (jamba) are served
-on the static path only, as in the reference: expert capacity couples the
-rows of a batch, so the batcher refuses them.  The full jamba-v0.1-52b
-(32 layers, 103 GB of bf16 weights) does not fit on one 80 GB card;
-this entry point, like the reference's, has no depth option, and
-``chip_smoke.py`` runs it at 16 layers.
+``torch.Generator`` seeded with ``--seed``; sampling draws, and the
+audio frames and images of the musicgen and llama-vision frontends, are
+keyed per (request, position) inside the scheduler.  MoE configs (jamba)
+are served on the static path only, as in the reference: expert capacity
+couples the rows of a batch, so the batcher refuses them.  The full
+jamba-v0.1-52b (32 layers, 103 GB of bf16 weights) does not fit on one
+80 GB card; this entry point, like the reference's, has no depth option,
+and ``chip_smoke.py`` runs it at 16 layers.
 """
 from __future__ import annotations
 
@@ -55,7 +62,8 @@ def make_trace(cfg, n_requests: int, *, seed: int,
                prompt_len_range=(4, 48), gen_range=(16, 64),
                temperature: float = 0.0) -> list[dict]:
     """Deterministic mixed-length request trace (the reference's: the same
-    numpy stream draws the same shapes and prompt tokens)."""
+    numpy stream draws the same shapes and prompt tokens; the audio-frames
+    frontend gets ``prompt=None`` and no draw)."""
     rng = np.random.default_rng(seed)
     lo, hi = prompt_len_range
     glo, ghi = gen_range
@@ -63,7 +71,8 @@ def make_trace(cfg, n_requests: int, *, seed: int,
     for _ in range(n_requests):
         pl = int(rng.integers(lo, hi + 1))
         gen = int(rng.integers(glo, ghi + 1))
-        prompt = rng.integers(0, cfg.vocab, pl).astype(np.int32)
+        prompt = (None if cfg.frontend == "audio_frames"
+                  else rng.integers(0, cfg.vocab, pl).astype(np.int32))
         out.append({"prompt": prompt, "prompt_len": pl, "max_new": gen,
                     "temperature": temperature})
     return out
@@ -135,6 +144,7 @@ def main(argv=None) -> dict:
                                   eos_id=args.eos_id)
             for t in trace:
                 b.submit(t["prompt"], t["max_new"],
+                         prompt_len=t["prompt_len"],
                          temperature=t["temperature"])
             return b.run()
 

@@ -1,4 +1,4 @@
-"""Model zoo: the dense decoder family with the tokens frontend."""
+"""Model zoo: the dense, xLSTM, Mamba + MoE, audio and vision families."""
 from .lm import LM
 
 __all__ = ["LM"]

@@ -1,9 +1,10 @@
-"""Attention family, the GQA half: causal and sliding-window masks, the
-KV cache with scalar and per-slot positions, and the flash-attention
-kernel on the full-sequence path.
+"""Attention family, the GQA half: self-attention with causal and
+sliding-window masks, cross-attention over a context stream (``kv_x``,
+the vision layers), the KV cache with scalar and per-slot positions, and
+the flash-attention kernel on the full-sequence path.
 
-Counterpart of ``repro.models.attention``.  Cross-attention (``kv_x``)
-and MLA wait for later slices (ROADMAP A4 and A9).
+Counterpart of ``repro.models.attention``.  MLA waits for a later slice
+(ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -160,10 +161,12 @@ def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     """Write this step's k/v into the cache in place (saves a copy of
     the whole cache per layer per step; JAX returns a new one instead).
 
-    Per-slot positions scatter each row's single token at its own
+    Per-slot positions scatter each row's first k/v row at its own
     position; an inactive row writes back what was there, so its cache
-    stays bit-identical.  A scalar position writes the S new tokens at
-    ``pos`` for every row."""
+    stays bit-identical.  A scalar position writes all of k's rows for
+    every row at ``pos``, clamped to ``S_c - rows`` as the reference's
+    ``dynamic_update_slice`` clamps it; k with more rows than the cache
+    raises, where the reference refuses to trace."""
     if cache.pos.ndim:
         rows = torch.arange(k.shape[0], device=k.device)
         pos = cache.pos.long()
@@ -178,7 +181,15 @@ def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     if active is not None:
         raise ValueError("active gating needs per-slot (vector) cache "
                          "positions: init_caches(vector_pos=True)")
-    idx = cache.pos.long() + torch.arange(k.shape[1], device=k.device)
+    n, S_c = k.shape[1], cache.k.shape[1]
+    if n > S_c:
+        raise ValueError(f"cannot write {n} k/v rows into a cache of "
+                         f"{S_c} positions (the reference's "
+                         "dynamic_update_slice refuses it too): give the "
+                         "cache at least as many positions as the "
+                         "cross-attention context has rows")
+    start = torch.clamp(cache.pos.long(), max=S_c - n)
+    idx = start + torch.arange(n, device=k.device)
     cache.k.index_copy_(1, idx, k)
     cache.v.index_copy_(1, idx, v)
 
@@ -191,25 +202,32 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
                   use_kernels: bool = False,
                   active: torch.Tensor | None = None,
                   ) -> tuple[torch.Tensor, KVCache | None]:
-    """Self-attention.  ``cache`` implies single-step decode (``active``
-    gates its per-slot write); without a cache ``use_kernels`` runs the
-    flash-attention kernel."""
-    if kv_x is not None:
-        raise NotImplementedError("cross-attention (kv_x) is not ported "
-                                  "yet: ROADMAP A4")
+    """Self- or cross-attention.  ``cache`` implies single-step decode
+    (``active`` gates its per-slot write); without a cache ``use_kernels``
+    runs the flash-attention kernel.  ``kv_x`` switches to
+    cross-attention over a context stream: k/v from ``kv_x``, no RoPE,
+    no causal mask.
+
+    With a cache, cross-attention does what the reference's does: it
+    projects all of ``kv_x`` and writes it into the layer's KV cache like
+    self-attention's k/v, so decode attends to the cache rows ``<= pos``
+    (per-slot: context row 0 at each slot's ``pos``; scalar: every
+    context row from the clamped ``pos``; see ``_write_cache``)."""
     B, S, D = x.shape
     Dh = cfg.resolved_head_dim
     H, KVH = cfg.n_heads, cfg.n_kv_heads
     rot_dim = int(Dh * cfg.rope_pct) & ~1
 
+    src = kv_x if kv_x is not None else x
     q = (x @ p["w_q"].reshape(D, H * Dh)).reshape(B, S, H, Dh)
-    kv = (x @ p["w_kv"].reshape(D, 2 * KVH * Dh)).reshape(B, S, 2, KVH, Dh)
+    kv = (src @ p["w_kv"].reshape(D, 2 * KVH * Dh)).reshape(
+        B, src.shape[1], 2, KVH, Dh)
     k, v = kv[:, :, 0], kv[:, :, 1]
     q = constrain(q, ("batch", "seq", "heads", "d_head"), "q")
     k = constrain(k, ("batch", "kv_seq", "kv_heads", "d_head"), "k")
     v = constrain(v, ("batch", "kv_seq", "kv_heads", "d_head"), "v")
 
-    if rot_dim > 0:
+    if kv_x is None and rot_dim > 0:
         cos, sin = rope_angles(positions, rot_dim)
         q = apply_rope(q, cos, sin, rot_dim)
         k = apply_rope(k, cos, sin, rot_dim)
@@ -221,16 +239,17 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
         mask = decode_mask(cache.k.shape[1], cache.pos, cfg.attn_window)
         ctx = _sdpa(q, cache.k, cache.v, mask)
     else:
+        is_causal = causal and kv_x is None
         if use_kernels:
             from ..kernels.flash_attention import ops as fa_ops
-            ctx = fa_ops.mha(q, k, v, causal=causal,
+            ctx = fa_ops.mha(q, k, v, causal=is_causal,
                              window=cfg.attn_window)
-        elif S * S > _FLASH_THRESHOLD:
-            ctx = flash_attention(q, k, v, causal=causal,
+        elif S * k.shape[1] > _FLASH_THRESHOLD:
+            ctx = flash_attention(q, k, v, causal=is_causal,
                                   window=cfg.attn_window)
         else:
-            mask = (causal_mask(S, S, cfg.attn_window, device=x.device)
-                    if causal else None)
+            mask = (causal_mask(S, k.shape[1], cfg.attn_window,
+                                device=x.device) if is_causal else None)
             ctx = _sdpa(q, k, v, mask)
 
     ctx = constrain(ctx, ("batch", "seq", "heads", "d_head"), "attn_ctx")

@@ -1,5 +1,7 @@
 """Decoder LM assembly: the dense, xLSTM and hybrid Mamba + MoE (jamba)
-families with the tokens frontend.
+families, with the tokens, audio-frames (musicgen) and vision
+(llama-3.2-vision: cross-attention layers over image embeddings)
+frontends.
 
 Counterpart of ``repro.models.lm``.  Parameters keep the reference's
 paths and layout (``group0/b0/mix/w_q`` of shape ``(layers, D, H, Dh)``
@@ -20,6 +22,11 @@ Entry points:
   ``active`` gating.
 * ``init_caches(B, S_max, vector_pos=)`` — zero caches in the reference's
   pytree layout.
+
+A batch holds ``tokens`` (B, S), or ``frames`` (B, S, d_model) for the
+audio-frames frontend, which has no ``embed`` leaf; the vision frontend
+adds ``img_embeds`` (B, n_img_tokens, d_model), which every ``xattn``
+layer attends to.  Both are cast to bf16, as the reference casts them.
 
 With ``use_kernels=True`` the full-sequence attention runs the flash
 attention kernel, the full-sequence mLSTM the chunkwise kernel, the
@@ -71,20 +78,17 @@ def _noop_constrain(x, dims, site=None):
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what is not ported yet: the
-    dense, xLSTM and Mamba + MoE families with the tokens frontend are."""
+    """Raise ``NotImplementedError`` for what is not ported yet: MLA and
+    the MTP loss (the deepseek configs)."""
     todo = []
     if cfg.mla is not None:
         todo.append("MLA attention (ROADMAP A9)")
     if cfg.mtp:
         todo.append("the MTP loss (ROADMAP A9)")
-    if cfg.frontend != "tokens" or cfg.cross_attn_every:
-        todo.append(f"the {cfg.frontend} frontend and cross-attention "
-                    "(ROADMAP A4)")
     if todo:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet (the port runs the dense, xLSTM "
-            "and Mamba + MoE families): " + "; ".join(todo))
+            f"{cfg.name}: not ported yet (the port runs the dense, xLSTM, "
+            "Mamba + MoE, audio and vision families): " + "; ".join(todo))
 
 
 def _like(tup: tuple, items) -> tuple:
@@ -172,15 +176,16 @@ class LM:
     # -- init --------------------------------------------------------------------
     def _build(self, pb: ParamBuilder) -> tuple[dict, dict]:
         cfg = self.cfg
-        pb.weight("embed", (cfg.vocab, cfg.d_model), ("vocab", "d_model"),
-                  scale=0.02)
+        if cfg.frontend != "audio_frames":
+            pb.weight("embed", (cfg.vocab, cfg.d_model),
+                      ("vocab", "d_model"), scale=0.02)
         for gi, (pattern, repeats) in enumerate(self._groups()):
             stack = repeats if repeats > 1 else None
             for j, (mix, ffn) in enumerate(pattern):
                 pfx = f"group{gi}/b{j}"
                 init_norm(pb, f"{pfx}/norm1", cfg.norm, cfg.d_model,
                           stack=stack)
-                if mix == "attn":
+                if mix in ("attn", "xattn"):
                     init_gqa(pb, f"{pfx}/mix", cfg, stack=stack)
                 elif mix == "mlstm":
                     init_mlstm(pb, f"{pfx}/mix", cfg, stack=stack)
@@ -221,18 +226,20 @@ class LM:
         return params_from_numpy(tree, self.device, like=self.param_shapes())
 
     # -- one block ----------------------------------------------------------------
-    def _block(self, resid, bp, mix, ffn, positions, cache=None,
+    def _block(self, resid, bp, mix, ffn, positions, img, cache=None,
                active=None):
         """One layer; returns (resid, aux, new_cache) with ``aux`` the
-        ``MoEAux`` of an MoE FFN, else ``None``."""
+        ``MoEAux`` of an MoE FFN, else ``None``.  An ``xattn`` layer
+        attends to ``img``."""
         cfg = self.cfg
         c = self.constrain
         x = apply_norm(cfg.norm, resid, bp["norm1"], self.use_kernels)
         new_cache = None
         aux = None
-        if mix == "attn":
+        if mix in ("attn", "xattn"):
             out, new_cache = gqa_attention(
                 x, bp["mix"], cfg, positions, c, cache=cache,
+                kv_x=img if mix == "xattn" else None,
                 use_kernels=self.use_kernels and cache is None,
                 active=active)
         elif mix == "mlstm":
@@ -272,7 +279,7 @@ class LM:
         resid = c(resid, ("batch", "seq", "d_model"), "residual2")
         return resid, aux, new_cache
 
-    def _super_block(self, resid, gparams, pattern, positions,
+    def _super_block(self, resid, gparams, pattern, positions, img,
                      caches=None, active=None):
         """Returns (resid, the MoEAux of each MoE layer, new_caches)."""
         auxes = []
@@ -280,7 +287,7 @@ class LM:
         for j, (mix, ffn) in enumerate(pattern):
             cache = caches.get(f"b{j}") if caches is not None else None
             resid, aux, nc = self._block(resid, gparams[f"b{j}"], mix, ffn,
-                                         positions, cache, active)
+                                         positions, img, cache, active)
             if aux is not None:
                 auxes.append(aux)
             if caches is not None:
@@ -288,7 +295,8 @@ class LM:
         return resid, auxes, new_caches
 
     # -- forward -------------------------------------------------------------------
-    def _backbone(self, params, resid, positions, caches=None, active=None):
+    def _backbone(self, params, resid, positions, img, caches=None,
+                  active=None):
         """Runs all layer groups; returns (resid, the MoEAux of each MoE
         layer in order, new_caches)."""
         auxes = []
@@ -298,7 +306,8 @@ class LM:
             gcaches = caches.get(f"group{gi}") if caches is not None else None
             if repeats == 1:
                 resid, ax, nc = self._super_block(resid, gparams, pattern,
-                                                  positions, gcaches, active)
+                                                  positions, img, gcaches,
+                                                  active)
                 auxes += ax
                 if caches is not None:
                     new_caches[f"group{gi}"] = nc
@@ -313,11 +322,11 @@ class LM:
                       if caches is not None else None)
                 if remat:
                     resid, ax = self._remat_layer(resid, lp, pattern,
-                                                  positions)
+                                                  positions, img)
                     nc = None
                 else:
                     resid, ax, nc = self._super_block(
-                        resid, lp, pattern, positions, lc, active)
+                        resid, lp, pattern, positions, img, lc, active)
                 auxes += ax
                 given.append(lc)
                 per_layer.append(nc)
@@ -326,20 +335,36 @@ class LM:
                                                          per_layer)
         return resid, auxes, new_caches
 
-    def _remat_layer(self, resid, lp, pattern, positions):
+    def _remat_layer(self, resid, lp, pattern, positions, img):
         """One layer of a stacked group under ``torch.utils.checkpoint``,
         the counterpart of the reference's ``jax.checkpoint`` of its scan
         body; returns (resid, the MoEAux of each MoE layer)."""
         def layer(r, lp):
-            r, ax, _ = self._super_block(r, lp, pattern, positions)
+            r, ax, _ = self._super_block(r, lp, pattern, positions, img)
             return r, ax
         kw = {"context_fn": _DOTS_CONTEXTS} if self.remat == "dots" else {}
         return checkpoint(layer, resid, lp, use_reentrant=False, **kw)
 
     def _embed(self, params, batch):
-        resid = params["embed"][batch["tokens"]].to(BF16)
-        return self.constrain(resid, ("batch", "seq", "d_model"),
-                              "embed_out")
+        """(resid, img): the frames or the tokens' embeddings, and the
+        image embeddings of the vision frontend (else ``None``), both in
+        bf16."""
+        cfg = self.cfg
+        if cfg.frontend == "audio_frames":
+            resid = batch["frames"].to(BF16)
+        else:
+            resid = params["embed"][batch["tokens"]].to(BF16)
+        resid = self.constrain(resid, ("batch", "seq", "d_model"),
+                               "embed_out")
+        img = (batch["img_embeds"].to(BF16) if cfg.frontend == "vision"
+               else None)
+        return resid, img
+
+    def _batch_seq(self, batch) -> tuple[int, int]:
+        """(B, S) of a batch: from ``frames`` for the audio frontend."""
+        if self.cfg.frontend == "audio_frames":
+            return tuple(batch["frames"].shape[:2])
+        return tuple(batch["tokens"].shape)
 
     def _head(self, params, resid):
         cfg = self.cfg
@@ -355,9 +380,10 @@ class LM:
 
     def logits_fn(self, params, batch) -> torch.Tensor:
         """Full-sequence logits (teacher forcing)."""
-        B, S = batch["tokens"].shape
-        resid = self._embed(params, batch)
-        resid, _, _ = self._backbone(params, resid, self._positions(B, S))
+        B, S = self._batch_seq(batch)
+        resid, img = self._embed(params, batch)
+        resid, _, _ = self._backbone(params, resid, self._positions(B, S),
+                                     img)
         return self._head(params, resid)
 
     def loss_fn(self, params, batch) -> tuple[torch.Tensor, dict]:
@@ -367,9 +393,9 @@ class LM:
         (``aux_z``) at ``AUX_LB_WEIGHT`` and ``AUX_Z_WEIGHT``; the aux
         terms are zeros without MoE layers, as the reference's are."""
         B, S = batch["labels"].shape
-        resid = self._embed(params, batch)
+        resid, img = self._embed(params, batch)
         resid, auxes, _ = self._backbone(params, resid,
-                                         self._positions(B, S))
+                                         self._positions(B, S), img)
         logits = self._head(params, resid)
         loss = cross_entropy(logits, batch["labels"])
         lb = zl = torch.zeros((), device=self.device)
@@ -387,10 +413,10 @@ class LM:
         ``aux`` sums the MoE layers' load-balance and z losses (the
         reference's backbone totals) and averages their dropped
         fractions (``None`` without MoE layers)."""
-        B, S = batch["tokens"].shape
-        resid = self._embed(params, batch)
+        B, S = self._batch_seq(batch)
+        resid, img = self._embed(params, batch)
         resid, auxes, _ = self._backbone(params, resid,
-                                         self._positions(B, S))
+                                         self._positions(B, S), img)
         logits = self._head(params, resid[:, -1:])
         if not with_aux:
             return logits
@@ -402,8 +428,9 @@ class LM:
         return logits, aux
 
     def decode_step(self, params, batch, caches) -> tuple[torch.Tensor, dict]:
-        """One-token step: ``batch`` holds the current token ``(B,1)`` and
-        the position — a scalar (lock-step batch) or a per-slot ``(B,)``
+        """One-token step: ``batch`` holds the current token ``(B,1)`` (or
+        frame ``(B,1,d_model)``, and the image embeddings) and the
+        position — a scalar (lock-step batch) or a per-slot ``(B,)``
         vector (caches from ``init_caches(vector_pos=True)``).
 
         ``batch["active"]`` (optional, ``(B,)`` bool, vector positions
@@ -411,12 +438,12 @@ class LM:
         caches come out bit-identical to never stepping.  The k/v caches
         are updated in place, so the ``caches`` passed in are the ones
         returned, with new position tensors."""
-        B = batch["tokens"].shape[0]
+        B = self._batch_seq(batch)[0]
         pos = batch["pos"]
         positions = pos[:, None] if pos.ndim else pos.expand(B, 1)
         active = batch.get("active")
-        resid = self._embed(params, batch)
-        resid, _, new_caches = self._backbone(params, resid, positions,
+        resid, img = self._embed(params, batch)
+        resid, _, new_caches = self._backbone(params, resid, positions, img,
                                               caches=caches, active=active)
         if active is not None:
             new_caches = self._gate_caches(active, caches, new_caches)
@@ -473,7 +500,7 @@ class LM:
         def z(shape, dtype=BF16):
             return torch.zeros(lead + shape, dtype=dtype, device=self.device)
 
-        if mix == "attn":
+        if mix in ("attn", "xattn"):
             KVH, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
             return KVCache(z((B, S_max, KVH, Dh)), z((B, S_max, KVH, Dh)),
                            z((B,) if vector_pos else (), torch.int32))

@@ -1,6 +1,7 @@
 """``repro_torch.models.attention`` (the GQA half) against
 ``repro.models.attention``: masks, ``_sdpa``, the chunked plain flash
-path, and ``gqa_attention`` with and without a KV cache."""
+path, and ``gqa_attention`` with and without a KV cache.  Its
+cross-attention (``kv_x``) is held in ``test_torch_frontends.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -173,9 +174,3 @@ def test_gqa_attention_decode_per_slot(arch):
             assert torch.equal(nt.k[r], old_k[r])
             assert torch.equal(nt.v[r], old_v[r])
 
-
-def test_cross_attention_not_ported():
-    cfg = get_config("smollm-135m", smoke=True)
-    x = torch.zeros(1, 2, cfg.d_model, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A4"):
-        TA.gqa_attention(x, {}, cfg, torch.zeros(1, 2), _noop, kv_x=x)

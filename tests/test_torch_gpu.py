@@ -114,6 +114,28 @@ def test_flash_attention_kernel(cuda, dtype, B, Sq, Skv, H, KVH, Dh, causal,
     np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
 
 
+@pytest.mark.parametrize("B,Sq,Skv,H,KVH,Dh", [
+    (4, 1024, 1600, 32, 8, 128),    # llama-3.2-vision's cross layers
+    (2, 200, 1601, 32, 8, 128),     # an odd key count
+    (1, 333, 77, 4, 2, 64),         # fewer keys than queries
+])
+def test_flash_attention_kernel_cross(cuda, B, Sq, Skv, H, KVH, Dh):
+    """Cross-attention's shapes: non-causal, Sq != Skv, and a key tail
+    (1600 = 12 x 128 + 64 keys; 1601 and 77 end mid-tile), bf16 against
+    the plain version at 2e-2."""
+    gen = torch.Generator(device=cuda).manual_seed(Skv + Dh)
+    q = torch.randn(B, Sq, H, Dh, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(B, Skv, KVH, Dh, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(B, Skv, KVH, Dh, generator=gen, device=cuda).bfloat16()
+    qk, kk, vk = tfa.to_kernel_layout(q, k, v)
+    before = tfa.flash_attention.launches
+    got = tfa.mha(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = tfa.from_kernel_layout(attention_ref(qk, kk, vk, causal=False), B)
+    np.testing.assert_allclose(f32(got), f32(want), **tol("bfloat16"))
+
+
 @pytest.mark.parametrize("B,S,H,KVH,Dh,window", [
     (4, 1024, 9, 3, 64, None),      # smollm prefill
     (1, 300, 8, 2, 128, None),
@@ -170,6 +192,44 @@ def test_prefill_runs_the_kernels_at_any_head_dim(cuda, arch, smoke, window):
     assert trms.rmsnorm.launches - rms0 == \
         (2 * cfg.n_layers + 1 if cfg.norm == "rms" else 0)
     want = lm_p.prefill(params, {"tokens": toks})
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)
+
+
+def _frontend_batch(cfg, B, S, device, gen):
+    """tokens or frames, and the image of the vision frontend."""
+    if cfg.frontend == "audio_frames":
+        batch = {"frames": torch.randn(B, S, cfg.d_model, generator=gen,
+                                       device=device).bfloat16()}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                         device=device)}
+    if cfg.frontend == "vision":
+        batch["img_embeds"] = torch.randn(
+            B, cfg.n_img_tokens, cfg.d_model, generator=gen,
+            device=device).bfloat16()
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llama-3.2-vision-11b"])
+def test_frontend_prefill_runs_the_kernels(cuda, arch):
+    """The frontends' smoke models, kernels against the plain path: a
+    flash launch per attention layer (llama-vision's cross layer
+    non-causal over its image), RMSNorm at every norm of llama-vision
+    (musicgen's are LayerNorms)."""
+    cfg = get_config(arch, smoke=True)
+    lm_k = LM(cfg, use_kernels=True, device=cuda)
+    lm_p = LM(cfg, use_kernels=False, device=cuda)
+    params, _ = lm_k.init(0)
+    batch = _frontend_batch(cfg, 2, 200, cuda,
+                            torch.Generator(device=cuda).manual_seed(0))
+    fa0, rms0 = tfa.flash_attention.launches, trms.rmsnorm.launches
+    got = lm_k.prefill(params, batch)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches - fa0 == cfg.n_layers
+    assert trms.rmsnorm.launches - rms0 == \
+        (2 * cfg.n_layers + 1 if cfg.norm == "rms" else 0)
+    want = lm_p.prefill(params, batch)
     assert torch.isfinite(got.float()).all()
     np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)
 
@@ -529,6 +589,29 @@ def test_step_graph_replay_matches_eager_step(cuda, arch, vector_pos):
             np.testing.assert_allclose(f32(a), f32(b), **tol("bfloat16"))
             if vector_pos:      # slot 1 never stepped: still zero
                 assert not a.select(1 if repeats > 1 else 0, 1).any()
+    graphs.release()
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llama-3.2-vision-11b"])
+def test_frontend_step_graph_replay_matches_eager_step(cuda, arch):
+    """A captured ``StepGraph`` of a frontend model reads its static
+    frames or image: replays against the eager step on the same inputs,
+    logits at the bf16 tolerance."""
+    from repro_torch.launch import graphs
+    lm, params = _smoke(arch, cuda)
+    B, S_max = 2, 32
+    g = graphs.StepGraph(lm, params, B, S_max, True)
+    assert g.graph is not None
+    caches = lm.init_caches(B, S_max, vector_pos=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    active = torch.tensor([True, True], device=cuda)
+    for t in range(4):
+        batch = _frontend_batch(lm.cfg, B, 1, cuda, gen)
+        pos = torch.full((B,), t, dtype=torch.int32, device=cuda)
+        got = g.run(pos=pos, active=active, **batch).clone()
+        want, caches = lm.decode_step(params, {**batch, "pos": pos,
+                                               "active": active}, caches)
+        np.testing.assert_allclose(f32(got), f32(want), **tol("bfloat16"))
     graphs.release()
 
 

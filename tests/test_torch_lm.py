@@ -150,7 +150,6 @@ def test_inactive_slots_stay_bit_identical():
 
 @pytest.mark.parametrize("arch,item", [
     ("deepseek-v2-236b", "A9"), ("deepseek-v3-671b", "A9"),
-    ("musicgen-large", "A4"), ("llama-3.2-vision-11b", "A4"),
 ])
 def test_unported_families_raise(arch, item):
     with pytest.raises(NotImplementedError, match=item):

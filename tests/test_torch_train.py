@@ -56,8 +56,11 @@ from repro_torch.models import ssm as tssm
 from repro_torch.models.layers import cross_entropy
 from repro_torch.models.lm import LM
 from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.optim import adamw as adamw_mod
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 from torch_parity import f32, numpy_tree
+from torch_parity import flat as _flat
+from torch_parity import strict_jit as _strict_jit
 
 B, S = 2, 16          # S a multiple of the smoke chunks (16)
 #: loss and metrics against the reference
@@ -71,29 +74,12 @@ PARITY_ARCHS = {"smollm-135m": GRAD_REL, "xlstm-125m": GRAD_REL,
                 "jamba-v0.1-52b": 0.1}
 
 
-def _flat(tree, prefix=""):
-    """{path: leaf} of a nested dict."""
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flat(v, f"{prefix}{k}/"))
-        return out
-    return {prefix[:-1]: tree}
-
-
 def _batch(vocab, b=B, s=S, step=0):
     return SyntheticCorpus(vocab, seed=0).batch(step, 0, b, s)
 
 
 def _jbatch(batch):
     return {k: jnp.asarray(v) for k, v in batch.items()}
-
-
-def _strict_jit(fn, *args):
-    """``fn(*args)`` jitted with bf16 intermediates rounded where the
-    reference rounds them (see the module docstring)."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_allow_excess_precision": False})(*args)
 
 
 def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -205,6 +191,30 @@ def test_adamw_updates_in_place():
     assert new_p["w"] is p["w"] and new_st.mu["w"] is st.mu["w"]
     assert not torch.equal(p["w"], before)
     assert int(new_st.step) == 1 and int(st.step) == 0
+
+
+def test_adamw_update_in_slices_is_bit_equal(monkeypatch):
+    """The update runs over slices of each leaf's first axis (its f32
+    temporaries stay small on large leaves): any slice size gives the
+    same params and moments, bit for bit, a scalar leaf included."""
+    gen = torch.Generator().manual_seed(0)
+    params = {"a": torch.randn(30, 7, 5, generator=gen).bfloat16(),
+              "b": torch.randn((), generator=gen),
+              "c": torch.randn(2, 1000, generator=gen).bfloat16()}
+    grads = {k: torch.randn(v.shape, generator=gen)
+             for k, v in params.items()}
+    out = []
+    for size in (1 << 26, 64, 1):
+        monkeypatch.setattr(adamw_mod, "_SLICE", size)
+        opt = AdamW(lr=1e-2)
+        p = {k: v.clone() for k, v in params.items()}
+        st = opt.init(p)
+        for _ in range(3):
+            p, st = opt.update(grads, st, p, lr_scale=torch.tensor(0.7))
+        out.append([*p.values(), *st.mu.values(), *st.nu.values()])
+    assert len(list(adamw_mod._row_slices(params["a"]))) == 30
+    for other in out[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out[0], other))
 
 
 @pytest.mark.parametrize("warmup,total", [(1, 20), (5, 50), (0, 10)])

@@ -58,3 +58,45 @@ def cuda() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run on the card: see README)")
     return torch.device("cuda")
+
+
+def strict_jit(fn, *args):
+    """``fn(*args)`` jitted with XLA's ``xla_allow_excess_precision`` off,
+    so bf16 intermediates round where the reference's op-by-op run rounds
+    them (``test_torch_train.py`` says why)."""
+    import jax
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
+def flat(tree, prefix=""):
+    """{path: leaf} of a nested dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+class RefDraws:
+    """The reference scheduler's frontend draws (``_frames_at``,
+    ``_image_of`` of ``_request_key(seed, rid)``) behind the port's
+    ``Draws`` seam, as f32 numpy arrays (exact for their bf16 values)."""
+
+    def __init__(self, seed: int, cfg):
+        self.seed, self.cfg = seed, cfg
+
+    def _key(self, rid):
+        from repro.launch import scheduler as JS
+        return JS._request_key(self.seed, rid)
+
+    def frames_at(self, rid, pos):
+        from repro.launch import scheduler as JS
+        return np.asarray(JS._frames_at(self._key(rid), pos,
+                                        self.cfg.d_model), np.float32)[0]
+
+    def image_of(self, rid):
+        from repro.launch import scheduler as JS
+        return np.asarray(JS._image_of(self._key(rid), self.cfg.n_img_tokens,
+                                       self.cfg.d_model), np.float32)[0]
