@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's prefill and serving paths at the full width of five
-models, and its train step at the full width of three, with random
+Drives the port's prefill and serving paths at the full width of seven
+models, and its train step at the full width of four, with random
 weights from a seeded ``torch.Generator``:
 smollm-135m (30 layers, d 576, 9/3 heads, head_dim 64, d_ff 1536, vocab
 49152), xlstm-125m (12 layers: 10 mLSTM, 2 sLSTM; d 768, 4 heads,
@@ -21,7 +21,15 @@ width and depth: musicgen-large (48 layers, d 2048, 32/32 heads,
 head_dim 64, d_ff 8192, vocab 2048, LayerNorm, audio frames in place of
 tokens; 3.22 B params) and llama-3.2-vision-11b (40 layers, every 5th
 cross-attending to a 1600-row image; d 4096, 32/8 heads, head_dim 128,
-d_ff 14336, vocab 128256; 9.78 B params).  On the card:
+d_ff 14336, vocab 128256; 9.78 B params); and the two MLA models at full
+width, cut in depth: deepseek-v2-236b at 7 of its 60 layers (the dense
+layer and 6 MoE layers; d 5120, 128 heads, MLA kv_lora 512, q_lora
+1536, rope 64, nope 128, v 128; 160 routed experts of d 1536, top-6, 2
+shared, capacity factor 1.25; dense d_ff 12288; vocab 102400; 25.22 B
+params, 50.4 GB in bf16) and deepseek-v3-671b at 5 of its 61 (its 3
+dense layers and 2 MoE layers, with the MTP head; d 7168, 128 heads, the
+same MLA ranks; 256 routed experts of d 2048, top-8, 1 shared; dense
+d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
 2. build: compiles every kernel under ``src/repro_torch/csrc`` with nvcc
@@ -30,7 +38,8 @@ d_ff 14336, vocab 128256; 9.78 B params).  On the card:
    the main paths give it, bf16 and f32, with kernel, plain and library
    times from CUDA events: RMSNorm and flash attention at 2e-2 (bf16) and
    2e-4 (f32), RMSNorm at smollm's, xlstm's and jamba's widths with 8
-   and 4,096 rows, each also timed as device time per launch from a CUDA
+   and 4,096 rows (and in bf16 at deepseek-v2's and -v3's, 5120 and
+   7168), each also timed as device time per launch from a CUDA
    graph's replays (``device_ms``); flash attention at smollm's shapes,
    at jamba's prefill shape (B=4, S=1024, 32/8 heads, Dh 128, causal),
    and in bf16 at stablelm-3b's (32/32 heads, Dh 80) and
@@ -160,13 +169,31 @@ d_ff 14336, vocab 128256; 9.78 B params).  On the card:
    16-128, 16-64 new tokens) with a cache of 2048 positions, since the
    offline oracle writes all 1600 image rows into each cross layer's
    cache.  No training: 9.78 B params take 117 GB with AdamW's state.
-   Each phase's seconds on ``[frontends]`` lines.
+   Each phase's seconds on ``[frontends]`` lines;
+16. deepseek-v2-236b at 7 layers: prefill as 4 at B=4, S=1024 with
+   routing pinned: exactly 15 RMSNorm, 12 grouped-matmul and no
+   flash-attention launches (MLA takes no kernel, as the reference's
+   takes none); the absorbed decode (``decode_step`` token by token over
+   the latent cache) against the materialised ``LM.prefill`` on one
+   prompt of 8 tokens, last-position logits at atol 0.25, rtol 0.1,
+   the decode's expert choices replayed in the prefill; static serving
+   as 10 (8 requests, prompts 16-128, 16-64 new tokens), with also the
+   first request shorter than its wave's longest re-decoded, its prompt
+   padded as the wave fed it; then, the model freed, the grouped
+   matmul as 11 at the group sizes of its first MoE layer's prefill
+   and its last decode step (both products each, bf16);
+17. deepseek-v3-671b at 5 layers: as 16, with 11 RMSNorm and 4
+   grouped-matmul launches a prefill; then 3 train steps at 3 layers
+   (its dense layers and the MTP head, 4.81 B params) at B=2, S=1024,
+   remat full, AdamW lr 1e-3 with bf16 moments: the losses and the
+   ``mtp`` metric finite, the moments bf16, ms a step and peak memory,
+   no launch.  Each phase's seconds on ``[deepseek]`` lines.
 
 Each path's launch counts are set to 0 just before it and read just
-after; the kernels' ``launches`` are their sums over phases 4-10, 14
-and 15 (the
-serving runs on graphs, which replays count, the eager ones only checked
-against them); the train runs of phases 12 and 13 must count none.
+after; the kernels' ``launches`` are their sums over phases 4-10 and
+14-17 (the serving runs on graphs, which replays count, the eager ones
+only checked against them); the train runs of phases 12, 13, 14 and 17
+must count none.
 Each model's graphs are released before the next model is built.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -295,6 +322,19 @@ F_REQUESTS, F_PROMPT_RANGE, F_GEN_RANGE = 8, (16, 128), (16, 64)
 V_S_MAX = 2048
 #: musicgen's train steps (its state is ~38.7 GB: 3.22 B params x 12 B)
 M_TRAIN_B, M_TRAIN_S, M_TRAIN_STEPS = 4, 1024, 3
+#: the deepseek models (phases 16 and 17) at full width, cut in depth:
+#: deepseek-v2 to its dense layer and 6 MoE layers (of 60; 25.22 B
+#: params), deepseek-v3 to its 3 dense layers and 2 MoE layers (of 61),
+#: with the MTP head (27.82 B params)
+DS2, DS3 = "deepseek-v2-236b", "deepseek-v3-671b"
+DS2_LAYERS, DS3_LAYERS = 7, 5
+#: the absorbed decode against the materialised prefill: one prompt of
+#: this many tokens, which the prefill's expert capacity (at least 8)
+#: holds whole, so neither path drops a token
+DS_ORACLE_S = 8
+#: deepseek-v3's train steps: its 3 dense layers and the MTP head (4.81 B
+#: params; with gradients and bf16 moments ~38.5 GB), B=2, S=1024
+DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_S, DS_TRAIN_STEPS = 3, 2, 1024, 3
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -672,6 +712,11 @@ def phase_kernels() -> dict:
                                      vcfg.resolved_head_dim, None,
                                      torch.bfloat16, Skv=vcfg.n_img_tokens,
                                      causal=False)
+    for arch in (DS2, DS3):
+        d = get_config(arch).d_model
+        for R in (SLOTS, PREFILL_B * PREFILL_S):
+            out[("rmsnorm", R, d, torch.bfloat16)] = rmsnorm_case(
+                R, d, torch.bfloat16)
     mb = jcfg.mamba
     for x_dtype in DTYPES:
         out[("ssd", x_dtype)] = ssd_case(PREFILL_B, PREFILL_S,
@@ -681,27 +726,35 @@ def phase_kernels() -> dict:
     return out
 
 
-def phase_gmm_kernels(prefill_ids: list, decode_ids: list) -> dict:
-    """The grouped matmul at the group sizes of jamba's first MoE layer in
-    the prefill (phase 9) and of its last decode step in serving (phase
-    10: all ``SLOTS`` rows active, ``top_k`` copies each).  Run after the
-    model is freed, since the plain version widens the weights to f32."""
-    cfg = get_config(JARCH)
+def phase_gmm_kernels(arch: str, prefill_ids: list, decode_ids: list,
+                      f32_case: bool = False) -> dict:
+    """The grouped matmul at the group sizes of ``arch``'s first MoE layer
+    in its prefill (phase 9, 16 or 17) and of its last decode step in
+    serving (phase 10, 16 or 17: all ``SLOTS`` rows active, ``top_k``
+    copies each); ``f32_case`` adds the first prefill product in f32 with
+    F cut.  Run after the model is freed, since the plain version widens
+    the weights to f32."""
+    cfg = get_config(arch)
     moe = cfg.moe
     D, E, Fe = cfg.d_model, moe.n_experts, moe.d_expert
     cap = capacity_of(PREFILL_B * PREFILL_S, moe)
     dcap = capacity_of(SLOTS, moe)
     live = [int(group_sizes(ids, E, cap).sum()) for ids in prefill_ids]
-    print(f"[kernels] jamba prefill: live grouped-matmul rows by MoE layer "
+    print(f"[kernels] {arch} prefill: live grouped-matmul rows by MoE layer "
           f"{live} of {E * cap}")
     out = {}
     for ids, C, tag in ((prefill_ids[0], cap, "prefill"),
                         (decode_ids[-1], dcap, "decode")):
         gs = group_sizes(ids, E, C)
-        out[("gmm", tag, 1)] = gmm_case(gs, C, D, 2 * Fe, torch.bfloat16)
-        out[("gmm", tag, 2)] = gmm_case(gs, C, Fe, D, torch.bfloat16)
-    out[("gmm", "f32")] = gmm_case(group_sizes(prefill_ids[0], E, cap), cap,
-                                   D, 2 * Fe // GMM_F32_F_CUT, torch.float32)
+        out[("gmm", arch, tag, 1)] = gmm_case(gs, C, D, 2 * Fe,
+                                              torch.bfloat16)
+        torch.cuda.empty_cache()
+        out[("gmm", arch, tag, 2)] = gmm_case(gs, C, Fe, D, torch.bfloat16)
+        torch.cuda.empty_cache()
+    if f32_case:
+        out[("gmm", arch, "f32")] = gmm_case(
+            group_sizes(prefill_ids[0], E, cap), cap, D,
+            2 * Fe // GMM_F32_F_CUT, torch.float32)
     torch.cuda.empty_cache()
     return out
 
@@ -709,13 +762,15 @@ def phase_gmm_kernels(prefill_ids: list, decode_ids: list) -> dict:
 def expected_prefill_counts(cfg) -> dict:
     """Kernel launches of one prefill: a norm before every mixer, one
     before every FFN, the final norm; one flash-attention launch per
-    attention layer, one mLSTM launch per mLSTM layer, one selective
-    scan per Mamba layer and two grouped matmuls per MoE FFN."""
+    attention layer (GQA: MLA has none), one mLSTM launch per mLSTM layer,
+    one selective scan per Mamba layer and two grouped matmuls per MoE
+    FFN."""
     kinds = cfg.layer_kinds()
     norms = cfg.n_layers + 1 + sum(f != "none" for _, f in kinds)
     return {"rmsnorm": norms if cfg.norm == "rms" else 0,
-            "flash_attention": sum(m in ("attn", "xattn")
-                                   for m, _ in kinds),
+            # MLA takes no kernel, as the reference's takes none
+            "flash_attention": 0 if cfg.mla else sum(
+                m in ("attn", "xattn") for m, _ in kinds),
             "mlstm_chunk": sum(m == "mlstm" for m, _ in kinds),
             "ssd_scan": sum(m == "mamba" for m, _ in kinds),
             "moe_gmm": 2 * sum(f == "moe" for _, f in kinds)}
@@ -1258,7 +1313,9 @@ def phase_serve_static(lm_k: LM, params, device: dict
     check_served(cfg, eager, J_REQUESTS, calls, ("rmsnorm", "moe_gmm"))
     # the longest prompts decode offline twice: with their own routing
     # (reported: batch 1 and batch 8 round differently, which can swap a
-    # near-tied expert, see Routing) and with the eager run's (checked)
+    # near-tied expert, see Routing) and with the eager run's (checked);
+    # and the first shorter one, with its prompt padded with token 0 as
+    # the wave fed it, with the eager run's routing (checked)
     n_moe = sum(f == "moe" for _, f in cfg.layer_kinds())
     served = {r.rid: r for r in eager.rep.requests}
     start = 0
@@ -1270,6 +1327,14 @@ def phase_serve_static(lm_k: LM, params, device: dict
                                check=False)
                 _check_offline(lm_k, params, served[r.rid], s_max,
                                pinned=(routing, start, row))
+        short = [(row, r) for row, r in enumerate(w) if r.prompt_len < l_max]
+        if short:
+            row, r = short[0]
+            padded = np.zeros(l_max, np.int64)
+            padded[:r.prompt_len] = r.prompt
+            _check_offline(lm_k, params, dataclasses.replace(
+                served[r.rid], prompt=padded, prompt_len=l_max), s_max,
+                pinned=(routing, start, row))
         start += n_moe * (l_max + max(q.max_new for q in w) - 1)
     # the graph of the wave width, checked against one eager step, then
     # an untimed pass over the trace
@@ -1336,13 +1401,22 @@ def main() -> int:
     graphs.release()
     del jlm_k, jlm_p, jparams
     torch.cuda.empty_cache()
-    cases.update(phase_gmm_kernels(prefill_ids, decode_ids))
+    cases.update(phase_gmm_kernels(JARCH, prefill_ids, decode_ids,
+                                   f32_case=True))
     torch.cuda.empty_cache()
     phase_train()
     torch.cuda.empty_cache()
     phase_train_driver()
     torch.cuda.empty_cache()
     paths += phase_frontends(device)
+    for arch, n_layers, phase in ((DS2, DS2_LAYERS, 16),
+                                  (DS3, DS3_LAYERS, 17)):
+        ds_paths, ds_cases = phase_deepseek(arch, n_layers, phase, device)
+        paths += ds_paths
+        cases.update(ds_cases)
+    t0 = time.perf_counter()
+    phase_deepseek_train()
+    print(f"[deepseek] phase 17 train took {time.perf_counter() - t0:.1f} s")
 
     main_path = {k: sum(p[k] for p in paths) for k in COUNTED}
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -1378,6 +1452,13 @@ def main() -> int:
                                f"x ({PREFILL_B * PREFILL_S}, "
                                f"{jcfg.d_model}) bf16 (jamba prefill)",
                                ("device_ms",)),
+             **{f"{arch.split('-')[0]}_{arch.split('-')[1]}_{mode}": sub(
+                 ("rmsnorm", R, get_config(arch).d_model, torch.bfloat16),
+                 f"x ({R}, {get_config(arch).d_model}) bf16 ({arch} "
+                 f"{mode})", ("device_ms",))
+                for arch in (DS2, DS3)
+                for R, mode in ((SLOTS, "decode"),
+                                (PREFILL_B * PREFILL_S, "prefill"))},
              **cases[("rmsnorm", SLOTS, torch.bfloat16)]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -1434,13 +1515,13 @@ def main() -> int:
                     f"{jcfg.d_model}, {2 * jcfg.moe.d_expert}) bf16 (jamba "
                     "prefill, first product, at the first MoE layer's "
                     "group sizes)"),
-             second={k: cases[("gmm", "prefill", 2)][k]
-                     for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
-                               "bound_ms", "bound_by")},
-             decode={k: cases[("gmm", "decode", 1)][k]
-                     for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
-                               "bound_ms", "bound_by")},
-             **cases[("gmm", "prefill", 1)]),
+             second={k: cases[("gmm", JARCH, "prefill", 2)][k]
+                     for k in keys},
+             decode={k: cases[("gmm", JARCH, "decode", 1)][k]
+                     for k in keys},
+             deepseek_v2=gmm_subs(DS2, cases, sub),
+             deepseek_v3=gmm_subs(DS3, cases, sub),
+             **cases[("gmm", JARCH, "prefill", 1)]),
     ]
     for k in kernels:
         if k["launches"] <= 0:
@@ -1471,9 +1552,10 @@ def _copy(tree, device):
 
 
 def train_run(step, params, opt_state, loader, steps: int, lr_fn):
-    """``steps`` steps; the loss of each, and each step's ms between CUDA
-    events (the device's timeline, idle gaps included)."""
-    losses, events = [], []
+    """``steps`` steps; each metric of each step (``{name: [value]}``),
+    and each step's ms between CUDA events (the device's timeline, idle
+    gaps included)."""
+    metrics, events = [], []
     for i in range(steps):
         batch = loader.batch_at(i)
         start = torch.cuda.Event(enable_timing=True)
@@ -1482,10 +1564,11 @@ def train_run(step, params, opt_state, loader, steps: int, lr_fn):
         params, opt_state, m = step.fn(params, opt_state, batch,
                                        lr_scale=lr_fn(i))
         end.record()
-        losses.append(m["loss"])
+        metrics.append(m)
         events.append((start, end))
     torch.cuda.synchronize()
-    return params, opt_state, [float(x) for x in losses], \
+    return params, opt_state, \
+        {k: [float(m[k]) for m in metrics] for k in metrics[0]}, \
         [a.elapsed_time(b) for a, b in events]
 
 
@@ -1620,8 +1703,9 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    params, opt_state, losses, ms = train_run(step, params, opt_state,
-                                              loader, TRAIN_STEPS, lr_fn)
+    params, opt_state, hist, ms = train_run(step, params, opt_state,
+                                            loader, TRAIN_STEPS, lr_fn)
+    losses = hist["loss"]
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     if any(counts.values()):
@@ -1708,8 +1792,9 @@ def phase_train_xlstm() -> dict:
                            X_TRAIN_B, X_TRAIN_S)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    _, _, losses, ms = train_run(step, params, step.opt.init(params),
-                                 loader, X_TRAIN_STEPS, lambda i: 1.0)
+    _, _, hist, ms = train_run(step, params, step.opt.init(params),
+                               loader, X_TRAIN_STEPS, lambda i: 1.0)
+    losses = hist["loss"]
     counts = read_counts()
     if any(counts.values()) or not all(np.isfinite(losses)):
         raise AssertionError(f"xlstm train: launches {counts}, losses "
@@ -1925,9 +2010,10 @@ def phase_frontend_train() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    _, _, losses, ms = train_run(step, params, step.opt.init(params),
-                                 FrameBatches(cfg, M_TRAIN_B, M_TRAIN_S),
-                                 M_TRAIN_STEPS, lambda i: 1.0)
+    _, _, hist, ms = train_run(step, params, step.opt.init(params),
+                               FrameBatches(cfg, M_TRAIN_B, M_TRAIN_S),
+                               M_TRAIN_STEPS, lambda i: 1.0)
+    losses = hist["loss"]
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     if any(counts.values()) or not all(np.isfinite(losses)):
@@ -1968,6 +2054,130 @@ def phase_frontends(device: dict) -> list:
             print(f"[frontends] {arch}: train "
                   f"{time.perf_counter() - t2:.1f} s")
     return paths
+
+
+def gmm_subs(arch: str, cases: dict, sub) -> dict:
+    """The ``kernels`` line's grouped-matmul entries of ``arch``: both
+    prefill products and both decode products, at the group sizes the
+    main path gave them."""
+    cfg = get_config(arch)
+    moe = cfg.moe
+    D, E, Fe = cfg.d_model, moe.n_experts, moe.d_expert
+    out = {}
+    for tag, C in (("prefill", capacity_of(PREFILL_B * PREFILL_S, moe)),
+                   ("decode", capacity_of(SLOTS, moe))):
+        for n, (d, f) in ((1, (D, 2 * Fe)), (2, (Fe, D))):
+            out[f"{tag}_{('first', 'second')[n - 1]}"] = sub(
+                ("gmm", arch, tag, n),
+                f"({E}, {C}, {d}) x ({E}, {d}, {f}) bf16 ({arch} {tag}, "
+                f"{('first', 'second')[n - 1]} product)")
+    return out
+
+
+def check_absorbed(lm_k: LM, params) -> None:
+    """16 (c), 17 (c).  One prompt of ``DS_ORACLE_S`` tokens: the
+    last-position logits of ``decode_step`` run token by token (MLA's
+    absorbed form over the latent cache) against ``LM.prefill``'s (its
+    materialised form), at atol 0.25, rtol 0.1, with the decode's expert
+    choices replayed in the prefill."""
+    cfg = lm_k.cfg
+    S = DS_ORACLE_S
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=DEVICE)
+
+    def stepped():
+        caches = lm_k.init_caches(1, S)
+        for t in range(S):
+            logits, caches = lm_k.decode_step(params, {
+                "tokens": toks[:, t:t + 1],
+                "pos": torch.tensor(t, dtype=torch.int32, device=DEVICE)},
+                caches)
+        return logits
+    routing = Routing()
+    got = routing.run(stepped, False)
+    n_moe = sum(f == "moe" for _, f in cfg.layer_kinds())
+    # the prefill routes each MoE layer once over all S tokens
+    routing.ids = [torch.cat([routing.ids[t * n_moe + j] for t in range(S)])
+                   for j in range(n_moe)]
+    want = routing.run(lambda: lm_k.prefill(params, {"tokens": toks}), True)
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    if not torch.isfinite(g).all() or not torch.allclose(
+            g, w, atol=0.25, rtol=0.1):
+        raise AssertionError(f"{cfg.name}: absorbed decode vs materialised "
+                             f"prefill max abs err {err} (atol 0.25, rtol "
+                             "0.1)")
+    print(f"[deepseek] {cfg.name}: absorbed decode ({S} steps) vs "
+          f"materialised prefill, last-position logits max abs err "
+          f"{err:.4f} (max |logit| {w.abs().max().item():.3f}), argmax "
+          f"{'equal' if g.argmax() == w.argmax() else 'differs'}, routing "
+          "pinned")
+
+
+def phase_deepseek(arch: str, n_layers: int, phase: int, device: dict
+                   ) -> tuple[list, dict]:
+    """16, 17.  ``arch`` at full width and ``n_layers``: the prefill with
+    kernels against the plain one (routing pinned), the absorbed decode
+    against the materialised prefill, static serving eager and on graphs;
+    then, the model freed, the grouped matmul at the group sizes they
+    gave it.  Returns the launch counts of each path and the kernel
+    cases."""
+    t0 = time.perf_counter()
+    _, lm_k, lm_p, params = build_model(arch, n_layers=n_layers)
+    counts, prefill_ids = phase_prefill(lm_k, lm_p, params, iters=2)
+    check_absorbed(lm_k, params)
+    t1 = time.perf_counter()
+    serve_counts, decode_ids = phase_serve_static(lm_k, params, device)
+    graphs.release()
+    del lm_k, lm_p, params
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    cases = phase_gmm_kernels(arch, prefill_ids, decode_ids)
+    print(f"[deepseek] phase {phase} ({arch}, {n_layers} layers): build, "
+          f"prefill and oracle {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
+          f"grouped matmul {time.perf_counter() - t2:.1f} s")
+    return [counts, serve_counts], cases
+
+
+def phase_deepseek_train() -> dict:
+    """17 (d).  deepseek-v3 at full width and ``DS_TRAIN_LAYERS`` layers
+    (all dense) with its MTP head: ``DS_TRAIN_STEPS`` steps at B=2,
+    S=1024, remat full, AdamW lr 1e-3 with the config's bf16 moments.  The
+    losses and the ``mtp`` metric finite, the moments bf16, no kernel
+    launched."""
+    cfg = dataclasses.replace(get_config(DS3), n_layers=DS_TRAIN_LAYERS)
+    step = build_train_step(
+        cfg, opt=AdamW(lr=TRAIN_LR, moment_dtype=cfg.opt_moment_dtype),
+        remat="full", device=DEVICE)
+    params, _ = step.lm.init(SEED)
+    opt_state = step.opt.init(params)
+    n_params = sum(t.numel() for t in _leaves(params))
+    moments = [t.dtype for t in _leaves(opt_state.mu)] + [
+        t.dtype for t in _leaves(opt_state.nu)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    params, opt_state, hist, ms = train_run(
+        step, params, opt_state, FrameBatches(cfg, DS_TRAIN_B, DS_TRAIN_S),
+        DS_TRAIN_STEPS, lambda i: 1.0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, mtp = hist["loss"], hist["mtp"]
+    if any(counts.values()) or not all(np.isfinite(losses + mtp)) or \
+            set(moments) != {torch.bfloat16}:
+        raise AssertionError(f"{DS3} train: launches {counts}, losses "
+                             f"{losses}, mtp {mtp}, moment dtypes "
+                             f"{set(moments)}")
+    print(f"[train] {DS3} at {DS_TRAIN_LAYERS} layers with the MTP head "
+          f"({n_params / 1e9:.2f} B params) B={DS_TRAIN_B} S={DS_TRAIN_S} "
+          f"remat full, AdamW lr {TRAIN_LR} with bf16 moments: losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; mtp "
+          + " ".join(f"{x:.4f}" for x in mtp) + "; step ms "
+          + " ".join(f"{x:.1f}" for x in ms) + f"; peak memory {peak:.2f} "
+          f"GB; kernel launches {counts}")
+    del step, params, opt_state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "mtp": mtp, "step_ms": ms, "peak_gb": peak}
 
 
 def build_model(arch: str, n_layers: int | None = None):

@@ -44,8 +44,8 @@ def kernel_dims(dh: int, dv: int, elt: int) -> tuple[int, int]:
     if dv != dh or not 0 < dh <= WIDTHS[-1]:
         raise NotImplementedError(
             f"flash_attention kernel takes Dh == Dv <= {WIDTHS[-1]}, got "
-            f"Dh={dh}, Dv={dv} (Dh > {WIDTHS[-1]} or Dv != Dh is MLA: "
-            "ROADMAP A9)")
+            f"Dh={dh}, Dv={dv} (Dv != Dh, as MLA's Dh 192 and Dv 128, is "
+            "ROADMAP B6.1(c); the reference's MLA calls no kernel)")
     step = 16 // elt
     row = -(-dh // step) * step
     return row, next(w for w in WIDTHS if w >= row)

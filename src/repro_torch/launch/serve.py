@@ -11,6 +11,9 @@
         --arch jamba-v0.1-52b --smoke --device cpu
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v3-671b --smoke --device cpu
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch musicgen-large --smoke --device cpu
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -38,12 +41,14 @@ beside the results.
 The request trace comes from its own numpy stream; the parameters from a
 ``torch.Generator`` seeded with ``--seed``; sampling draws, and the
 audio frames and images of the musicgen and llama-vision frontends, are
-keyed per (request, position) inside the scheduler.  MoE configs (jamba)
-are served on the static path only, as in the reference: expert capacity
-couples the rows of a batch, so the batcher refuses them.  The full
-jamba-v0.1-52b (32 layers, 103 GB of bf16 weights) does not fit on one
-80 GB card; this entry point, like the reference's, has no depth option,
-and ``chip_smoke.py`` runs it at 16 layers.
+keyed per (request, position) inside the scheduler.  MoE configs (jamba,
+deepseek-v2 and deepseek-v3) are served on the static path only, as in
+the reference: expert capacity couples the rows of a batch, so the
+batcher refuses them.  None of the three fits on one 80 GB card at full
+depth (jamba-v0.1-52b's 32 layers are 103 GB of bf16 weights); this
+entry point, like the reference's, has no depth option, and
+``chip_smoke.py`` runs jamba at 16 layers, deepseek-v2 at 7 and
+deepseek-v3 at 5.
 """
 from __future__ import annotations
 

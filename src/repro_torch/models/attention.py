@@ -1,10 +1,10 @@
-"""Attention family, the GQA half: self-attention with causal and
-sliding-window masks, cross-attention over a context stream (``kv_x``,
-the vision layers), the KV cache with scalar and per-slot positions, and
-the flash-attention kernel on the full-sequence path.
+"""Attention family: GQA self-attention with causal and sliding-window
+masks, cross-attention over a context stream (``kv_x``, the vision
+layers), the KV cache with scalar and per-slot positions, the
+flash-attention kernel on the full-sequence path, and DeepSeek's MLA
+with the absorbed decode form over the latent cache.
 
-Counterpart of ``repro.models.attention``.  MLA waits for a later slice
-(ROADMAP A9).
+Counterpart of ``repro.models.attention``.
 """
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ _NEG = -1e30
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor          # (B, S_max, KVH, Dh)
+    k: torch.Tensor          # (B, S_max, KVH, Dh), or MLA's latent
+                             # (B, S_max, kv_lora + rope_dim), v None
     v: Optional[torch.Tensor]
     #: tokens already cached: a scalar int32 for lock-step decode, or a
     #: per-slot ``(B,)`` int32 vector for the continuous-batching server.
@@ -156,42 +157,49 @@ def decode_mask(Skv: int, pos: torch.Tensor, window: int | None = None
     return m[None, None, None, None, :]
 
 
-def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
-                 active: torch.Tensor | None) -> None:
-    """Write this step's k/v into the cache in place (saves a copy of
-    the whole cache per layer per step; JAX returns a new one instead).
-
-    Per-slot positions scatter each row's first k/v row at its own
-    position; an inactive row writes back what was there, so its cache
-    stays bit-identical.  A scalar position writes all of k's rows for
-    every row at ``pos``, clamped to ``S_c - rows`` as the reference's
-    ``dynamic_update_slice`` clamps it; k with more rows than the cache
-    raises, where the reference refuses to trace."""
-    if cache.pos.ndim:
-        rows = torch.arange(k.shape[0], device=k.device)
-        pos = cache.pos.long()
-        k_new, v_new = k[:, 0], v[:, 0]
+def _write_rows(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                active: torch.Tensor | None) -> None:
+    """Write ``new`` (B, n, ...) into ``buf`` (B, S_c, ...) in place at
+    ``pos``.  Per-slot positions scatter each row's first new row at its
+    own position, an inactive row writing back what was there; a scalar
+    position writes all ``n`` rows for every row, clamped to ``S_c - n``
+    as the reference's ``dynamic_update_slice`` clamps it."""
+    if pos.ndim:
+        rows = torch.arange(new.shape[0], device=new.device)
+        at = pos.long()
+        row = new[:, 0]
         if active is not None:
-            keep = active[:, None, None]
-            k_new = torch.where(keep, k_new, cache.k[rows, pos])
-            v_new = torch.where(keep, v_new, cache.v[rows, pos])
-        cache.k[rows, pos] = k_new
-        cache.v[rows, pos] = v_new
+            keep = active.view((-1,) + (1,) * (row.ndim - 1))
+            row = torch.where(keep, row, buf[rows, at])
+        buf[rows, at] = row
         return
-    if active is not None:
-        raise ValueError("active gating needs per-slot (vector) cache "
-                         "positions: init_caches(vector_pos=True)")
-    n, S_c = k.shape[1], cache.k.shape[1]
-    if n > S_c:
-        raise ValueError(f"cannot write {n} k/v rows into a cache of "
-                         f"{S_c} positions (the reference's "
-                         "dynamic_update_slice refuses it too): give the "
-                         "cache at least as many positions as the "
-                         "cross-attention context has rows")
-    start = torch.clamp(cache.pos.long(), max=S_c - n)
-    idx = start + torch.arange(n, device=k.device)
-    cache.k.index_copy_(1, idx, k)
-    cache.v.index_copy_(1, idx, v)
+    n = new.shape[1]
+    start = torch.clamp(pos.long(), max=buf.shape[1] - n)
+    buf.index_copy_(1, start + torch.arange(n, device=new.device), new)
+
+
+def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor | None,
+                 active: torch.Tensor | None) -> None:
+    """Write this step's k/v (or MLA's latent row, ``v`` None) into the
+    cache in place (saves a copy of the whole cache per layer per step;
+    JAX returns a new one instead), as ``_write_rows`` does, so an
+    inactive slot's cache stays bit-identical.  ``active`` needs per-slot
+    positions; k with more rows than the cache raises, where the
+    reference refuses to trace."""
+    if not cache.pos.ndim:
+        if active is not None:
+            raise ValueError("active gating needs per-slot (vector) cache "
+                             "positions: init_caches(vector_pos=True)")
+        n, S_c = k.shape[1], cache.k.shape[1]
+        if n > S_c:
+            raise ValueError(f"cannot write {n} k/v rows into a cache of "
+                             f"{S_c} positions (the reference's "
+                             "dynamic_update_slice refuses it too): give "
+                             "the cache at least as many positions as the "
+                             "cross-attention context has rows")
+    _write_rows(cache.k, k, cache.pos, active)
+    if v is not None:
+        _write_rows(cache.v, v, cache.pos, active)
 
 
 def gqa_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
@@ -254,4 +262,110 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
 
     ctx = constrain(ctx, ("batch", "seq", "heads", "d_head"), "attn_ctx")
     out = ctx.reshape(B, S, H * Dh) @ p["w_o"].reshape(H * Dh, D)
+    return out, new_cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek V2/V3)
+# --------------------------------------------------------------------------
+
+def init_mla(pb: ParamBuilder, path: str, cfg: ArchConfig,
+             stack: int | None = None) -> None:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    pb.weight(f"{path}/w_q_a", (D, m.q_lora), ("d_model", "q_lora"),
+              stack=stack)
+    pb.weight(f"{path}/w_q_b", (m.q_lora, H, m.nope_dim + m.rope_dim),
+              ("q_lora", "heads", "d_head"), stack=stack)
+    pb.weight(f"{path}/w_kv_a", (D, m.kv_lora + m.rope_dim),
+              ("d_model", "kv_lora"), stack=stack)
+    pb.weight(f"{path}/w_uk", (H, m.kv_lora, m.nope_dim),
+              ("heads", "kv_lora", "d_head"), stack=stack)
+    pb.weight(f"{path}/w_uv", (H, m.kv_lora, m.v_dim),
+              ("heads", "kv_lora", "d_head"), stack=stack)
+    pb.weight(f"{path}/w_o", (H, m.v_dim, D),
+              ("heads", "d_head", "d_model"), stack=stack)
+
+
+def mla_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                  positions: torch.Tensor, constrain: Constrain,
+                  cache: KVCache | None = None,
+                  active: torch.Tensor | None = None,
+                  ) -> tuple[torch.Tensor, KVCache | None]:
+    """MLA with the latent cache.  Without a cache the keys and values are
+    materialised per head (in f32 where ``S·S`` is at most
+    ``_FLASH_THRESHOLD``, else through the chunked ``flash_attention`` in
+    bf16 with Dqk 192 and Dv 128); with one, decode runs the *absorbed*
+    form: the queries are projected into the latent space, so the cache
+    holds ``kv_lora + rope_dim`` features a token, written in place as
+    ``_write_cache`` writes (``active`` gates per-slot rows).
+
+    Where the reference asks for an f32 result of bf16 operands
+    (``preferred_element_type=F32``) the operands are cast to f32 and
+    multiplied in f32, where the products of bf16 values are exact."""
+    m = cfg.mla
+    B, S, D = x.shape
+    H = cfg.n_heads
+    R, Dn = m.kv_lora, m.nope_dim
+
+    qa = x @ p["w_q_a"]
+    q = (qa @ p["w_q_b"].reshape(m.q_lora, -1)).reshape(B, S, H, -1)
+    q_nope, q_pe = q[..., :Dn], q[..., Dn:]
+    ckv_full = x @ p["w_kv_a"]
+    q_nope = constrain(q_nope, ("batch", "seq", "heads", "d_head"), "q")
+    ckv_full = constrain(ckv_full, ("batch", "kv_seq", "kv_lora"), "c_kv")
+
+    cos, sin = rope_angles(positions, m.rope_dim)
+    q_pe = apply_rope(q_pe, cos, sin, m.rope_dim)
+    k_pe = apply_rope(ckv_full[:, :, None, R:], cos, sin,
+                      m.rope_dim)[:, :, 0]
+    ckv = torch.cat([ckv_full[..., :R], k_pe], dim=-1)
+    scale = math.sqrt(Dn + m.rope_dim)
+
+    new_cache = None
+    if cache is not None:
+        _write_cache(cache, ckv, None, active)
+        new_cache = KVCache(cache.k, None, cache.pos + S)
+        lat = cache.k
+        c_nope = lat[..., :R].to(F32)
+        c_pe = lat[..., R:].to(F32)
+        # absorbed: q_lat[h] = q_nope[h] @ W_uk[h]^T, (B, S, H, kv_lora)
+        q_lat = torch.einsum("bshk,hrk->bshr", q_nope.to(F32),
+                             p["w_uk"].to(F32))
+        scores = (torch.einsum("bshr,btr->bhst", q_lat, c_nope)
+                  + torch.einsum("bshk,btk->bhst", q_pe.to(F32), c_pe))
+        scores = scores / scale
+        kpos = torch.arange(lat.shape[1], device=x.device)
+        cpos = (cache.pos[:, None, None, None] if cache.pos.ndim
+                else cache.pos)
+        scores = torch.where(kpos <= cpos, scores, _NEG)
+        probs = torch.softmax(scores, dim=-1)
+        ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_nope)
+        ctx = torch.einsum("bshr,hrv->bshv", ctx_lat,
+                           p["w_uv"].to(F32)).to(x.dtype)
+    else:
+        c32 = ckv[..., :R].to(F32)
+        k_nope = torch.einsum("bsr,hrk->bshk", c32, p["w_uk"].to(F32))
+        v = torch.einsum("bsr,hrv->bshv", c32, p["w_uv"].to(F32))
+        if S * S > _FLASH_THRESHOLD:
+            # the nope and rope halves as one q/k: standard attention
+            # with Dv != Dqk, which the chunked path takes
+            BF = x.dtype
+            q_eff = torch.cat([q_nope.to(BF), q_pe.to(BF)], dim=-1)
+            k_pe_h = ckv[:, :, None, R:].expand(B, S, H, m.rope_dim)
+            k_eff = torch.cat([k_nope.to(BF), k_pe_h.to(BF)], dim=-1)
+            ctx = flash_attention(q_eff, k_eff, v.to(BF), causal=True)
+        else:
+            scores = (torch.einsum("bshk,bthk->bhst", q_nope.to(F32),
+                                   k_nope)
+                      + torch.einsum("bshk,btk->bhst", q_pe.to(F32),
+                                     ckv[..., R:].to(F32)))
+            scores = scores / scale
+            mask = causal_mask(S, S, device=x.device)[0]
+            scores = torch.where(mask, scores, _NEG)
+            probs = torch.softmax(scores, dim=-1)
+            ctx = torch.einsum("bhst,bthv->bshv", probs, v).to(x.dtype)
+
+    ctx = constrain(ctx, ("batch", "seq", "heads", "d_head"), "attn_ctx")
+    out = ctx.reshape(B, S, -1) @ p["w_o"].reshape(-1, D)
     return out, new_cache

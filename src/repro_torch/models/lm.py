@@ -1,7 +1,7 @@
-"""Decoder LM assembly: the dense, xLSTM and hybrid Mamba + MoE (jamba)
-families, with the tokens, audio-frames (musicgen) and vision
-(llama-3.2-vision: cross-attention layers over image embeddings)
-frontends.
+"""Decoder LM assembly: the dense, xLSTM, hybrid Mamba + MoE (jamba) and
+MLA + MoE (deepseek-v2/v3, with deepseek-v3's MTP loss) families, with
+the tokens, audio-frames (musicgen) and vision (llama-3.2-vision:
+cross-attention layers over image embeddings) frontends.
 
 Counterpart of ``repro.models.lm``.  Parameters keep the reference's
 paths and layout (``group0/b0/mix/w_q`` of shape ``(layers, D, H, Dh)``
@@ -11,15 +11,15 @@ stacked ``layers`` axis, this module loops over it.
 Entry points:
 
 * ``loss_fn(params, batch)`` — training loss and its metrics (the MoE
-  aux terms included); with ``remat`` each layer of a stacked group is
-  recomputed in the backward pass, as the reference's ``jax.checkpoint``
-  of the scan body.
+  aux terms and the MTP loss included); with ``remat`` each layer of a
+  stacked group is recomputed in the backward pass, as the reference's
+  ``jax.checkpoint`` of the scan body.
 * ``logits_fn(params, batch)`` — full-sequence logits (teacher forcing).
 * ``prefill(params, batch)`` — full-sequence forward; returns the
   last-position logits (as the reference does; it returns no caches).
-* ``decode_step(params, batch, caches)`` — one-token step with KV, SSM
-  or xLSTM state caches, scalar or per-slot positions, optional
-  ``active`` gating.
+* ``decode_step(params, batch, caches)`` — one-token step with KV (MLA:
+  latent), SSM or xLSTM state caches, scalar or per-slot positions,
+  optional ``active`` gating.
 * ``init_caches(B, S_max, vector_pos=)`` — zero caches in the reference's
   pytree layout.
 
@@ -28,18 +28,15 @@ audio-frames frontend, which has no ``embed`` leaf; the vision frontend
 adds ``img_embeds`` (B, n_img_tokens, d_model), which every ``xattn``
 layer attends to.  Both are cast to bf16, as the reference casts them.
 
-With ``use_kernels=True`` the full-sequence attention runs the flash
-attention kernel, the full-sequence mLSTM the chunkwise kernel, the
-full-sequence Mamba scan the selective-scan kernel, both expert products
-of every MoE FFN (prefill and decode) the grouped-matmul kernel, and
-every RMS norm the RMSNorm kernel.  The reference routes only attention,
+With ``use_kernels=True`` the full-sequence GQA attention runs the flash
+attention kernel (MLA runs no kernel, as the reference's takes none),
+the full-sequence mLSTM the chunkwise kernel, the full-sequence Mamba
+scan the selective-scan kernel, both expert products of every MoE FFN
+(prefill and decode) the grouped-matmul kernel, and every RMS norm the RMSNorm kernel.  The reference routes only attention,
 the mLSTM and the Mamba scan through its kernels; its RMSNorm and
 grouped-matmul kernels compute exactly ``rms_norm`` and the expert
 einsums, and are wired in here so that the serving loop, whose attention
 is the plain ``_sdpa`` over the cache, runs kernels of its own.
-
-Families outside this slice raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
@@ -54,7 +51,8 @@ from torch.utils.checkpoint import (checkpoint,
 from .. import resolve_device
 from ..bridge import params_from_numpy
 from ..configs.base import ArchConfig
-from .attention import KVCache, gqa_attention, init_gqa
+from .attention import (KVCache, gqa_attention, init_gqa, init_mla,
+                        mla_attention)
 from .layers import (BF16, F32, ParamBuilder, apply_norm, cross_entropy,
                      init_mlp, init_norm, mlp)
 from .moe import MoEAux, init_moe, moe_ffn
@@ -65,6 +63,7 @@ from .xlstm import (MLSTMState, SLSTMState, init_mlstm, init_slstm,
 
 AUX_LB_WEIGHT = 0.01
 AUX_Z_WEIGHT = 1e-3
+MTP_WEIGHT = 0.3
 REMATS = ("none", "full", "dots")
 #: ``remat="dots"``: keep the outputs of the un-batched matrix products
 #: and recompute the rest, as ``dots_with_no_batch_dims_saveable`` does
@@ -75,20 +74,6 @@ _DOTS_CONTEXTS = functools.partial(
 
 def _noop_constrain(x, dims, site=None):
     return x
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what is not ported yet: MLA and
-    the MTP loss (the deepseek configs)."""
-    todo = []
-    if cfg.mla is not None:
-        todo.append("MLA attention (ROADMAP A9)")
-    if cfg.mtp:
-        todo.append("the MTP loss (ROADMAP A9)")
-    if todo:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet (the port runs the dense, xLSTM, "
-            "Mamba + MoE, audio and vision families): " + "; ".join(todo))
 
 
 def _like(tup: tuple, items) -> tuple:
@@ -128,8 +113,8 @@ def _stack_layers(old, given, new):
     ``lax.scan`` stacks them: ``given[i]`` is the view of ``old`` that
     layer ``i`` was handed, ``new[i]`` what it returned.  A leaf that
     every layer returned as the very view it was given was written in
-    place (attention k/v), so the stacked ``old`` leaf holds it; every
-    other leaf is stacked anew."""
+    place (attention k/v, MLA's latent), so the stacked ``old`` leaf holds
+    it; every other leaf is stacked anew."""
     if isinstance(old, dict):
         return {key: _stack_layers(old[key], [g[key] for g in given],
                                    [n[key] for n in new]) for key in old}
@@ -157,7 +142,6 @@ class LM:
     remat: str = "full"
 
     def __post_init__(self):
-        check_ported(self.cfg)
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got "
                              f"{self.remat!r}")
@@ -186,7 +170,8 @@ class LM:
                 init_norm(pb, f"{pfx}/norm1", cfg.norm, cfg.d_model,
                           stack=stack)
                 if mix in ("attn", "xattn"):
-                    init_gqa(pb, f"{pfx}/mix", cfg, stack=stack)
+                    (init_mla if cfg.mla is not None else init_gqa)(
+                        pb, f"{pfx}/mix", cfg, stack=stack)
                 elif mix == "mlstm":
                     init_mlstm(pb, f"{pfx}/mix", cfg, stack=stack)
                 elif mix == "slstm":
@@ -207,6 +192,13 @@ class LM:
         if not cfg.tie_embeddings:
             pb.weight("head", (cfg.d_model, cfg.vocab), ("d_model", "vocab"),
                       scale=0.02)
+        if cfg.mtp:
+            pb.weight("mtp/proj", (2 * cfg.d_model, cfg.d_model),
+                      ("d_model2", "d_model"))
+            init_norm(pb, "mtp/norm1", cfg.norm, cfg.d_model)
+            init_gqa(pb, "mtp/mix", cfg)
+            init_norm(pb, "mtp/norm2", cfg.norm, cfg.d_model)
+            init_mlp(pb, "mtp/ffn", cfg.d_model, cfg.dense_d_ff or cfg.d_ff)
         return pb.params, pb.dims
 
     def init(self, seed: int = 0) -> tuple[dict, dict]:
@@ -236,7 +228,10 @@ class LM:
         x = apply_norm(cfg.norm, resid, bp["norm1"], self.use_kernels)
         new_cache = None
         aux = None
-        if mix in ("attn", "xattn"):
+        if mix in ("attn", "xattn") and cfg.mla is not None:
+            out, new_cache = mla_attention(x, bp["mix"], cfg, positions, c,
+                                           cache=cache, active=active)
+        elif mix in ("attn", "xattn"):
             out, new_cache = gqa_attention(
                 x, bp["mix"], cfg, positions, c, cache=cache,
                 kv_x=img if mix == "xattn" else None,
@@ -388,14 +383,15 @@ class LM:
 
     def loss_fn(self, params, batch) -> tuple[torch.Tensor, dict]:
         """(loss, metrics) of a batch of ``tokens`` and ``labels`` (B, S):
-        the mean cross-entropy with its z-loss (``xent``) plus the MoE
-        layers' summed load-balance (``aux_lb``) and router z losses
-        (``aux_z``) at ``AUX_LB_WEIGHT`` and ``AUX_Z_WEIGHT``; the aux
-        terms are zeros without MoE layers, as the reference's are."""
+        the mean cross-entropy with its z-loss (``xent``), with the MTP
+        head's loss (``mtp``) at ``MTP_WEIGHT`` where the config has one,
+        plus the MoE layers' summed load-balance (``aux_lb``) and router z
+        losses (``aux_z``) at ``AUX_LB_WEIGHT`` and ``AUX_Z_WEIGHT``; the
+        aux terms are zeros without MoE layers, as the reference's are."""
         B, S = batch["labels"].shape
+        positions = self._positions(B, S)
         resid, img = self._embed(params, batch)
-        resid, auxes, _ = self._backbone(params, resid,
-                                         self._positions(B, S), img)
+        resid, auxes, _ = self._backbone(params, resid, positions, img)
         logits = self._head(params, resid)
         loss = cross_entropy(logits, batch["labels"])
         lb = zl = torch.zeros((), device=self.device)
@@ -403,9 +399,34 @@ class LM:
             lb = lb + a.load_balance_loss
             zl = zl + a.router_z_loss
         metrics = {"xent": loss, "aux_lb": lb, "aux_z": zl}
+        if self.cfg.mtp:
+            mtp_loss = self._mtp_loss(params, resid, batch, positions)
+            metrics["mtp"] = mtp_loss
+            loss = loss + MTP_WEIGHT * mtp_loss
         loss = loss + AUX_LB_WEIGHT * lb + AUX_Z_WEIGHT * zl
         metrics["loss"] = loss
         return loss, metrics
+
+    def _mtp_loss(self, params, resid, batch, positions):
+        """DeepSeek-V3's depth-1 multi-token prediction: the final hidden
+        state, normed, beside the embedding of the next token, projected
+        back to ``d_model``; one more block (GQA, then the dense FFN);
+        the shared head predicts token t+2 (labels shifted by 2,
+        zero-padded; no z-loss)."""
+        cfg = self.cfg
+        mp = params["mtp"]
+        nxt = torch.nn.functional.pad(batch["labels"][:, 1:], (0, 1))
+        emb = params["embed"][nxt].to(BF16)
+        h = torch.cat([apply_norm(cfg.norm, resid, mp["norm1"],
+                                  self.use_kernels), emb], dim=-1)
+        h = h @ mp["proj"]
+        out, _ = gqa_attention(h, mp["mix"], cfg, positions, self.constrain)
+        h = h + out
+        x2 = apply_norm(cfg.norm, h, mp["norm2"], self.use_kernels)
+        h = h + mlp(x2, mp["ffn"], self.constrain)
+        logits = self._head(params, h)
+        labels = torch.nn.functional.pad(batch["labels"][:, 2:], (0, 2))
+        return cross_entropy(logits, labels, z_loss=0.0)
 
     def prefill(self, params, batch, with_aux: bool = False):
         """Full-sequence forward returning the last-position logits
@@ -478,7 +499,9 @@ class LM:
         leading ``layers`` axis inside a stacked group: ``KVCache(k, v,
         pos)`` with ``k``/``v`` of shape ``(B, S_max, KVH, Dh)`` for
         attention, ``(SSMState(h), conv_carry)`` with ``h`` ``(B, Din, N)``
-        f32 and the carry ``(B, d_conv-1, Din)`` bf16 for Mamba, and
+        f32 and the carry ``(B, d_conv-1, Din)`` bf16 for Mamba,
+        ``KVCache(lat, None, pos)`` with the latent ``lat`` of shape
+        ``(B, S_max, kv_lora + rope_dim)`` for MLA, and
         ``MLSTMState(C, n, m)`` and ``SLSTMState(c, n, h, m)`` in f32 for
         the xLSTM mixers (``m`` starts at 0, as the reference's caches
         do).
@@ -500,10 +523,14 @@ class LM:
         def z(shape, dtype=BF16):
             return torch.zeros(lead + shape, dtype=dtype, device=self.device)
 
+        pos = z((B,) if vector_pos else (), torch.int32)
+        if mix in ("attn", "xattn") and cfg.mla is not None:
+            m = cfg.mla
+            return KVCache(z((B, S_max, m.kv_lora + m.rope_dim)), None, pos)
         if mix in ("attn", "xattn"):
             KVH, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
             return KVCache(z((B, S_max, KVH, Dh)), z((B, S_max, KVH, Dh)),
-                           z((B,) if vector_pos else (), torch.int32))
+                           pos)
         if mix == "mlstm":
             H = cfg.n_heads
             Dh = cfg.xlstm.proj_factor_mlstm * cfg.d_model // H

@@ -3,8 +3,9 @@ load-balance aux loss, sort-based capacity dispatch, expert SwiGLU
 products, weighted combine, optional shared experts.
 
 Counterpart of the single-card half of ``repro.models.moe`` (``moe_ffn``
-without its ``ep`` branch; the ``all_to_all`` path ``moe_ffn_ep`` is
-ROADMAP A9), with the same parameter paths, shapes and dtypes.
+without its ``ep`` branch; the ``all_to_all`` path ``moe_ffn_ep``, which
+runs only under a plan and a mesh, is ROADMAP A9's rest), with the same
+parameter paths, shapes and dtypes.
 
 Two departures, both where the reference's result is unspecified:
 

@@ -11,9 +11,11 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.models.layers import ParamBuilder
 from repro_torch.models.lm import LM
-from torch_parity import numpy_tree
+from torch_parity import f32, numpy_tree
 
 DENSE = ["smollm-135m", "smollm-360m", "stablelm-3b", "h2o-danube-3-4b"]
+#: MLA in every layer; deepseek-v3 adds the MTP head
+MLA = ["deepseek-v2-236b", "deepseek-v3-671b"]
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +79,7 @@ def test_load_params_checks_paths_and_shapes(ref_tree):
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MLA)
 def test_param_tree_matches_reference(arch, smoke):
     """Paths, shapes, dtypes and logical dims equal the reference's, at
     full width too (on the meta device: nothing is allocated)."""
@@ -92,3 +94,26 @@ def test_param_tree_matches_reference(arch, smoke):
             np.dtype(leaf.dtype).name, path
     _, dims = lm._build(ParamBuilder(None, device=torch.device("meta")))
     assert _flat(dims) == _flat(jdims)
+
+
+@pytest.mark.parametrize("arch", MLA)
+def test_mla_and_mtp_leaves_cross_by_name(arch):
+    """The reference's MLA and MTP leaves reach the port through
+    ``load_params`` (``params_from_numpy`` with ``like=``) bit for bit,
+    and a leaf of the wrong shape is refused."""
+    jparams, _ = JLM(jget(arch, smoke=True)).init(jax.random.PRNGKey(3))
+    lm = LM(get_config(arch, smoke=True), device="cpu")
+    tree = numpy_tree(jparams)
+    got = _flat(lm.load_params(tree))
+    want = _flat(tree)
+    names = [p for p in want if "/mix/w_u" in p or p.startswith("mtp/")]
+    assert any("/mix/w_uk" in p for p in names)
+    assert any(p.startswith("mtp/") for p in names) == lm.cfg.mtp
+    for path in names:
+        assert np.array_equal(f32(got[path]), np.asarray(want[path],
+                                                         np.float32)), path
+    bad = jax.tree.map(lambda a: a, tree)
+    bad["group0"]["b0"]["mix"]["w_uk"] = bad["group0"]["b0"]["mix"][
+        "w_uk"][..., :-1]
+    with pytest.raises(ValueError):
+        lm.load_params(bad)

@@ -27,7 +27,10 @@ from repro_torch.distributed.checkpoint import (CheckpointCorruptionError,
 from repro_torch.optim import AdamW, AdamWState
 from torch_parity import numpy_tree
 
-ARCHS = ("smollm-135m", "xlstm-125m", "jamba-v0.1-52b")
+#: deepseek-v2's MLA leaves; deepseek-v3's MLA and MTP leaves, with bf16
+#: moments
+ARCHS = ("smollm-135m", "xlstm-125m", "jamba-v0.1-52b", "deepseek-v2-236b",
+         "deepseek-v3-671b")
 #: the manifest fields both writers must agree on (``time`` and the CRCs
 #: of two different zip writers need not)
 MANIFEST_FIELDS = ("keys", "shapes", "dtypes", "bf16_keys", "n_hosts",

@@ -6,6 +6,7 @@ imports no JAX, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -491,6 +492,38 @@ def test_moe_gmm_kernel_prefill_group_sizes(cuda, rows):
     torch.testing.assert_close(got.float(), want.float(), **tol("bfloat16"))
 
 
+@pytest.mark.parametrize("E,C,D,F,live", [
+    (160, 192, 5120, 3072, 160),   # deepseek-v2 prefill, first product
+    (160, 192, 1536, 5120, 160),   # ... second product
+    (64, 160, 7168, 4096, 64),     # deepseek-v3 prefill, first (E cut)
+    (64, 160, 2048, 7168, 64),     # ... second product (E cut)
+    (160, 8, 5120, 3072, 48),      # deepseek-v2 decode at 8 rows
+    (256, 8, 2048, 7168, 64),      # deepseek-v3 decode, second product
+])
+def test_moe_gmm_kernel_deepseek_shapes(cuda, E, C, D, F, live):
+    """The grouped matmul at deepseek's shapes: prefill at the
+    capacities of B=4, S=1024 (192 rows for deepseek-v2's 160 experts,
+    160 for deepseek-v3's 256, whose E is cut to 64 for the test's time),
+    where 128-row tiles leave a partial tile per expert; decode at 8 rows
+    with ``live`` experts holding rows and the rest empty."""
+    gen = torch.Generator(device=cuda).manual_seed(E + C + D + F)
+    x = torch.randn(E, C, D, generator=gen, device=cuda).bfloat16()
+    w = (torch.randn(E, D, F, generator=gen, device=cuda) * D ** -0.5) \
+        .bfloat16()
+    gs = torch.randint(1, C + 1, (E,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    gs[torch.randperm(E, generator=gen, device=cuda)[:E - live]] = 0
+    gs[-1] = C if live == E else gs[-1]
+    before = tgmm.moe_gmm.launches
+    got = tgmm.moe_gmm(x, w, gs, c_block=math.gcd(C, 128),
+                       f_block=math.gcd(F, 512), d_block=math.gcd(D, 512))
+    torch.cuda.synchronize()
+    assert tgmm.moe_gmm.launches == before + 1
+    want = moe_gmm_ref(x, w, gs)
+    torch.testing.assert_close(got.float(), want.float(), **tol("bfloat16"))
+    assert int((gs > 0).sum()) == live
+
+
 def test_moe_gmm_kernel_copies_strided_inputs(cuda):
     gen = torch.Generator(device=cuda).manual_seed(9)
     x = torch.randn(4, 64, 32, generator=gen, device=cuda).bfloat16()
@@ -532,6 +565,32 @@ def test_jamba_prefill_runs_the_kernels(cuda):
     np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)
 
 
+@pytest.mark.parametrize("arch,launches", [("deepseek-v2-236b", [7, 0, 4]),
+                                           ("deepseek-v3-671b", [9, 0, 6])])
+def test_deepseek_prefill_runs_the_kernels(cuda, arch, launches):
+    """RMSNorm at every norm site and the grouped matmul in every MoE FFN;
+    MLA runs no kernel, as the reference's takes none.  Then the absorbed
+    decode on the card against the materialised prefill."""
+    cfg = get_config(arch, smoke=True)
+    lm_k = LM(cfg, use_kernels=True, device=cuda)
+    lm_p = LM(cfg, use_kernels=False, device=cuda)
+    params, _ = lm_k.init(0)
+    toks = torch.randint(0, cfg.vocab, (2, 48), device=cuda)
+    counts = (trms.rmsnorm, tfa.flash_attention, tgmm.moe_gmm)
+    before = [f.launches for f in counts]
+    got = lm_k.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counts, before)] == launches
+    want = lm_p.prefill(params, {"tokens": toks})
+    np.testing.assert_allclose(f32(got), f32(want), atol=0.25, rtol=0.1)
+    caches = lm_p.init_caches(2, 48)
+    for t in range(48):
+        stepped, caches = lm_p.decode_step(params, {
+            "tokens": toks[:, t:t + 1],
+            "pos": torch.tensor(t, dtype=torch.int32, device=cuda)}, caches)
+    np.testing.assert_allclose(f32(stepped), f32(want), atol=0.25, rtol=0.1)
+
+
 # -- CUDA graphs of the serving steps (``launch/graphs.py``) ---------------
 
 def _smoke(arch, cuda, **over):
@@ -554,7 +613,8 @@ def _tree_leaves(tree):
 
 @pytest.mark.parametrize("arch,vector_pos", [("smollm-135m", True),
                                              ("xlstm-125m", True),
-                                             ("jamba-v0.1-52b", False)])
+                                             ("jamba-v0.1-52b", False),
+                                             ("deepseek-v3-671b", False)])
 def test_step_graph_replay_matches_eager_step(cuda, arch, vector_pos):
     """Replays of a captured ``StepGraph`` against the eager
     ``decode_step`` on the same inputs: logits and every cache leaf at

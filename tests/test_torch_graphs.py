@@ -55,12 +55,16 @@ def _batcher(lm, params, reqs, graphs_on):
 
 @pytest.mark.parametrize("arch,path", [("smollm-135m", "batcher"),
                                        ("xlstm-125m", "batcher"),
-                                       ("jamba-v0.1-52b", "static")])
+                                       ("jamba-v0.1-52b", "static"),
+                                       ("deepseek-v2-236b", "static"),
+                                       ("deepseek-v3-671b", "static")])
 def test_graph_form_serving_matches_eager_and_reference(arch, path):
     """Greedy tokens through the direct ``StepGraph`` form equal the
     eager path's and the reference's, token for token: the dense and
     xLSTM configs through the batcher (three requests, two slots, so a
-    slot is reused), jamba through ``run_static`` (one wave of two)."""
+    slot is reused), jamba and deepseek (MoE) through ``run_static`` (one
+    wave of two; deepseek's MLA decodes in its absorbed form over the
+    latent cache)."""
     jlm, jparams, lm, params = _pair(arch)
     n = 3 if path == "batcher" else 2
     if path == "batcher":
@@ -96,7 +100,9 @@ def _leaves(tree, path=""):
 
 @pytest.mark.parametrize("arch,vector_pos", [("smollm-135m", True),
                                              ("xlstm-125m", True),
-                                             ("jamba-v0.1-52b", False)])
+                                             ("jamba-v0.1-52b", False),
+                                             ("deepseek-v2-236b", True),
+                                             ("deepseek-v3-671b", False)])
 def test_static_caches_advance_as_the_eager_step(arch, vector_pos):
     """After N runs the static caches equal the eager ``decode_step``'s
     caches leaf for leaf, bit for bit, as do the logits; with per-slot

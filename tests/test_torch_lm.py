@@ -1,8 +1,8 @@
 """``repro_torch.models.lm.LM`` against ``repro.models.lm.LM`` with the
 reference's params bridged in: ``logits_fn``, ``prefill`` (kernels on and
-off) and lock-step decode, on the dense smoke configs and on jamba's
-(Mamba + MoE + GQA).  The xLSTM family has its own file,
-``test_torch_xlstm.py``.
+off) and lock-step decode, on the dense smoke configs, on jamba's
+(Mamba + MoE + GQA) and on deepseek-v2's and deepseek-v3's (MLA + MoE).
+The xLSTM family has its own file, ``test_torch_xlstm.py``.
 
 The jamba cases compare with the reference run op by op
 (``jax.disable_jit``), as ``test_torch_xlstm.py`` does; with kernels, the
@@ -14,7 +14,7 @@ expert weights (std 1/sqrt(E) = 0.5 here) grow such a step until one
 token's router choice flips in the last MoE layer (on these inputs: token
 4 of row 0, whose first Mamba output rounds one bf16 step apart), and a
 top-k choice is discontinuous.  So the 16-layer cases replay the
-reference's expert ids in the port (``_RouterPin``), hold the logits to
+reference's expert ids in the port (``RouterPin``), hold the logits to
 the same bf16 tolerance, and bound the number of choices the port's own
 router would have moved."""
 import contextlib
@@ -27,13 +27,11 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget
-from repro.models import moe as jmoe
 from repro.models.lm import LM as JLM
 from repro_torch.configs import get_config
-from repro_torch.models import moe as tmoe
 from repro_torch.models.lm import LM
 from repro_torch.models.ssm import SSMState
-from torch_parity import f32, numpy_tree, tol
+from torch_parity import RouterPin, f32, numpy_tree, tol
 
 PARITY_ARCHS = ["smollm-135m", "smollm-360m", "h2o-danube-3-4b"]
 B, S = 2, 24
@@ -102,7 +100,8 @@ def test_scalar_decode_steps(pair):
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "h2o-danube-3-4b",
                                   "stablelm-3b", "xlstm-125m",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "deepseek-v2-236b",
+                                  "deepseek-v3-671b"])
 def test_decode_matches_parallel(arch):
     """The reference's ``test_decode_matches_parallel``, on the port:
     stepping one token at a time through the cache reproduces the
@@ -146,14 +145,6 @@ def test_inactive_slots_stay_bit_identical():
         assert torch.equal(getattr(got, name)[:, 1], before[name][:, 1])
         assert not torch.equal(getattr(got, name)[:, 0], before[name][:, 0])
     assert got.pos[:, 0].tolist() == [5, 5] and got.pos[:, 2].tolist() == [1, 1]
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("deepseek-v2-236b", "A9"), ("deepseek-v3-671b", "A9"),
-])
-def test_unported_families_raise(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        LM(get_config(arch, smoke=True), device="cpu")
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])
@@ -233,57 +224,11 @@ def test_jamba_param_tree_matches_reference(jamba):
     assert _tree_specs(params) == _tree_specs(lm.param_shapes())
 
 
-class _RouterPin:
-    """Records the expert ids the reference's ``router_topk`` picks and
-    replays them, call by call, in the port's, with gates from the port's
-    own router probabilities at those experts.  ``moved`` counts the
-    tokens whose expert set the port's own router would have changed."""
-
-    def __init__(self):
-        self.ids: list[np.ndarray] = []
-        self.moved = 0
-
-    @contextlib.contextmanager
-    def recording(self):
-        orig = jmoe.router_topk
-
-        def record(x, w_router, moe):
-            gate, idx, aux = orig(x, w_router, moe)
-            self.ids.append(np.array(idx))
-            return gate, idx, aux
-        jmoe.router_topk = record
-        try:
-            yield
-        finally:
-            jmoe.router_topk = orig
-
-    @contextlib.contextmanager
-    def replaying(self):
-        orig = tmoe.router_topk
-        calls = iter(self.ids)
-
-        def replay(x, w_router, moe):
-            _, own, aux = orig(x, w_router, moe)
-            idx = torch.as_tensor(next(calls)).to(own.dtype)
-            self.moved += int((idx.sort(-1).values != own.sort(-1).values)
-                              .any(-1).sum())
-            probs = torch.softmax(x.to(torch.float32) @ w_router, dim=-1)
-            gate = probs.gather(-1, idx)
-            gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-            return gate, idx, aux
-        tmoe.router_topk = replay
-        try:
-            yield
-        finally:
-            tmoe.router_topk = orig
-        assert next(calls, None) is None, "the port routed fewer times"
-
-
 def _jamba_pair(lm, ref_fn, port_fn):
     """``ref_fn()`` op by op and ``port_fn()``, compared at the bf16
     tolerance; at 16 layers with the reference's expert choices replayed
     in the port, which would move at most one token on its own."""
-    pin = _RouterPin()
+    pin = RouterPin()
     deep = lm.cfg.n_layers > 8
     with jax.disable_jit(), \
             pin.recording() if deep else contextlib.nullcontext():
@@ -373,7 +318,7 @@ def test_jamba_inactive_slots_stay_bit_identical():
 @pytest.mark.parametrize("use_kernels", [False, True])
 def test_jamba_builds_and_runs_on_cpu(use_kernels):
     """Mamba + MoE is ported: the smoke model builds, prefills and
-    decodes; MLA (deepseek) still raises with A9."""
+    decodes."""
     lm = LM(get_config("jamba-v0.1-52b", smoke=True),
             use_kernels=use_kernels, device="cpu")
     params, _ = lm.init(0)
@@ -389,3 +334,57 @@ def test_jamba_builds_and_runs_on_cpu(use_kernels):
     state, carry = caches["group0"]["b0"]
     assert tuple(state.h.shape) == (2, 128, 8) and tuple(carry.shape) == (
         2, 3, 128)
+
+
+# -- deepseek (MLA + MoE) -----------------------------------------------------
+
+DS_ARCHS = ["deepseek-v2-236b", "deepseek-v3-671b"]
+
+
+@pytest.fixture(scope="module", params=DS_ARCHS)
+def deepseek(request):
+    """A deepseek smoke config (a dense layer, then a stacked group of MoE
+    layers; MLA in every layer) with the reference's params."""
+    jcfg = jget(request.param, smoke=True)
+    jlm = JLM(jcfg, remat="none")
+    jparams, _ = jlm.init(jax.random.PRNGKey(0))
+    lm = LM(get_config(request.param, smoke=True), device="cpu")
+    params = lm.load_params(numpy_tree(jparams))
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab, (JB, JS))
+    return jlm, jparams, lm, params, toks
+
+
+def _pinned_pair(ref_fn, port_fn):
+    """``ref_fn()`` op by op, and ``port_fn()`` with the reference's
+    expert choices replayed, compared at the bf16 tolerance."""
+    pin = RouterPin()
+    with jax.disable_jit(), pin.recording():
+        want = ref_fn()
+    with pin.replaying():
+        got = port_fn()
+    logits = got[0] if isinstance(got, tuple) else got
+    np.testing.assert_allclose(f32(logits), f32(want), **tol("bfloat16"))
+    return got, pin
+
+
+def test_deepseek_logits_fn(deepseek):
+    jlm, jparams, lm, params, toks = deepseek
+    got, pin = _pinned_pair(lambda: jlm.logits_fn(jparams, _jbatch(toks)),
+                            lambda: lm.logits_fn(params, _tbatch(toks)))
+    assert tuple(got.shape) == (JB, JS, lm.cfg.vocab)
+    assert len(pin.ids) == lm.cfg.n_layers - 1 and pin.moved <= 1
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_deepseek_prefill(deepseek, use_kernels):
+    """Kernels on: RMSNorm at every norm site and the grouped matmul in
+    every MoE FFN (their plain versions on the CPU); MLA takes no
+    kernel, as the reference's does."""
+    jlm, jparams, lm, params, toks = deepseek
+    jk = JLM(jlm.cfg, remat="none", use_kernels=use_kernels)
+    tk = LM(lm.cfg, use_kernels=use_kernels, device="cpu")
+    (got, aux), _ = _pinned_pair(
+        lambda: jk.prefill(jparams, _jbatch(toks)),
+        lambda: tk.prefill(params, _tbatch(toks), with_aux=True))
+    assert tuple(got.shape) == (JB, 1, lm.cfg.vocab)
+    assert float(aux.dropped_fraction) == 0.0

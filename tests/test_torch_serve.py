@@ -343,3 +343,14 @@ def test_serve_main_jamba_on_cpu():
                     "--gen-range", "3", "6", "--device", "cpu"])
     assert m["arch"] == "jamba-v0.1-52b" and "continuous" not in m
     assert m["static"]["requests"] == 3 and m["static"]["generated"] >= 9
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_serve_main_deepseek_on_cpu(arch):
+    """deepseek serves on the static path, as the reference's does: MLA
+    decodes in its absorbed form over the latent cache."""
+    m = serve_main(["--arch", arch, "--smoke", "--slots", "2",
+                    "--requests", "3", "--prompt-len-range", "3", "10",
+                    "--gen-range", "3", "6", "--device", "cpu"])
+    assert m["arch"] == arch and "continuous" not in m
+    assert m["static"]["requests"] == 3 and m["static"]["generated"] >= 9

@@ -58,7 +58,7 @@ from repro_torch.models.lm import LM
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.optim import adamw as adamw_mod
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
-from torch_parity import f32, numpy_tree
+from torch_parity import RouterPin, f32, numpy_tree
 from torch_parity import flat as _flat
 from torch_parity import strict_jit as _strict_jit
 
@@ -193,10 +193,9 @@ def test_adamw_updates_in_place():
     assert int(new_st.step) == 1 and int(st.step) == 0
 
 
-def test_adamw_update_in_slices_is_bit_equal(monkeypatch):
-    """The update runs over slices of each leaf's first axis (its f32
-    temporaries stay small on large leaves): any slice size gives the
-    same params and moments, bit for bit, a scalar leaf included."""
+def _sliced_updates(monkeypatch, moment_dtype):
+    """Params and moments after three updates at slice sizes 2^26, 64
+    and 1, and the leaves the first run started from."""
     gen = torch.Generator().manual_seed(0)
     params = {"a": torch.randn(30, 7, 5, generator=gen).bfloat16(),
               "b": torch.randn((), generator=gen),
@@ -206,13 +205,30 @@ def test_adamw_update_in_slices_is_bit_equal(monkeypatch):
     out = []
     for size in (1 << 26, 64, 1):
         monkeypatch.setattr(adamw_mod, "_SLICE", size)
-        opt = AdamW(lr=1e-2)
+        opt = AdamW(lr=1e-2, moment_dtype=moment_dtype)
         p = {k: v.clone() for k, v in params.items()}
         st = opt.init(p)
         for _ in range(3):
             p, st = opt.update(grads, st, p, lr_scale=torch.tensor(0.7))
         out.append([*p.values(), *st.mu.values(), *st.nu.values()])
+    return out, params
+
+
+def test_adamw_update_in_slices_is_bit_equal(monkeypatch):
+    """The update runs over slices of each leaf's first axis (its f32
+    temporaries stay small on large leaves): any slice size gives the
+    same params and moments, bit for bit, a scalar leaf included."""
+    out, params = _sliced_updates(monkeypatch, "f32")
     assert len(list(adamw_mod._row_slices(params["a"]))) == 30
+    for other in out[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out[0], other))
+
+
+def test_adamw_update_in_slices_keeps_bf16_moments_bit_equal(monkeypatch):
+    """The same with deepseek-v3's bf16 moments: each slice rounds its
+    moments to bf16 as the whole leaf does."""
+    out, _ = _sliced_updates(monkeypatch, "bf16")
+    assert all(t.dtype == torch.bfloat16 for t in out[0][3:])
     for other in out[1:]:
         assert all(torch.equal(a, b) for a, b in zip(out[0], other))
 
@@ -620,3 +636,125 @@ def test_train_step_needs_a_card_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_train_step(get_config("smollm-135m", smoke=True))
+
+
+# -- deepseek: MLA, the MTP loss, bf16 moments --------------------------------
+
+DS_ARCHS = ["deepseek-v2-236b", "deepseek-v3-671b"]
+
+
+@pytest.fixture(scope="module", params=DS_ARCHS)
+def ds_pair(request):
+    """The reference's strict-jit loss and gradients on a deepseek smoke
+    config (MLA in every layer, MoE from the second; deepseek-v3 adds the
+    MTP head), the expert ids its router picks op by op, and the port's
+    LM with the same params."""
+    arch = request.param
+    jlm = JLM(jget(arch, smoke=True), remat="none")
+    jparams, _ = jlm.init(jax.random.PRNGKey(0))
+    batch = _batch(jlm.cfg.vocab)
+    (_, jmetrics), jgrads = _strict_jit(
+        jax.value_and_grad(jlm.loss_fn, has_aux=True), jparams,
+        _jbatch(batch))
+    pin = RouterPin()
+    with jax.disable_jit(), pin.recording():
+        jlm.loss_fn(jparams, _jbatch(batch))
+    # no remat: its recompute would route once more, past the replay
+    lm = LM(get_config(arch, smoke=True), device="cpu", remat="none")
+    return dict(batch=batch, jmetrics=jmetrics, jgrads=jgrads, pin=pin,
+                lm=lm, params=lm.load_params(numpy_tree(jparams)),
+                jparams=jparams)
+
+
+def test_deepseek_loss_fn_and_grads_match_reference(ds_pair):
+    """``loss_fn`` with its ``xent``, ``aux_*`` and (deepseek-v3) ``mtp``
+    metrics within atol 5e-3, rtol 1e-3 of the reference's; every
+    gradient leaf within 2e-2 of its largest reference magnitude, with
+    the reference's expert choices replayed in the port."""
+    d = ds_pair
+    lm, params = d["lm"], d["params"]
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    tb = {k: torch.as_tensor(v) for k, v in d["batch"].items()}
+    with d["pin"].replaying():
+        loss, metrics = lm.loss_fn(tree_unflatten(params, leaves), tb)
+    assert d["pin"].moved <= 1
+    grads = torch.autograd.grad(loss, leaves)
+    want_keys = ["aux_lb", "aux_z", "loss", "xent"] + (
+        ["mtp"] if lm.cfg.mtp else [])
+    assert sorted(metrics) == sorted(d["jmetrics"]) == sorted(want_keys)
+    for k, v in d["jmetrics"].items():
+        np.testing.assert_allclose(f32(metrics[k]), f32(v), **LOSS_TOL,
+                                   err_msg=k)
+    jg = _flat(numpy_tree(d["jgrads"]))
+    tg = _flat(tree_unflatten(params, list(grads)))
+    assert sorted(jg) == sorted(tg)
+    if lm.cfg.mtp:
+        assert {p.split("/")[1] for p in tg if p.startswith("mtp/")} == {
+            "proj", "norm1", "mix", "norm2", "ffn"}
+    for path, want in jg.items():
+        w = f32(want)
+        np.testing.assert_allclose(
+            f32(tg[path]), w, rtol=0,
+            atol=GRAD_REL * np.abs(w).max() + 1e-6, err_msg=path)
+
+
+def test_deepseek_v3_adamw_step_bf16_moments_matches_reference():
+    """One train step of deepseek-v3's smoke config, whose config selects
+    bf16 AdamW moments, against the reference's gradients and update:
+    the moments are bf16 and within the bf16 tolerance of the
+    reference's, every updated param within the step bound."""
+    arch = "deepseek-v3-671b"
+    jlm = JLM(jget(arch, smoke=True), remat="none")
+    jparams, _ = jlm.init(jax.random.PRNGKey(0))
+    batch = _batch(jlm.cfg.vocab)
+    jopt = JAdamW(moment_dtype="bf16")
+
+    def ref_step(p, b):
+        (_, m), g = jax.value_and_grad(jlm.loss_fn, has_aux=True)(p, b)
+        p1, s1 = jopt.update(g, jopt.init(p), p)
+        return p1, s1, m
+    p0 = numpy_tree(jparams)
+    jp1, js1, jm = _strict_jit(ref_step, jparams, _jbatch(batch))
+    step = build_train_step(get_config(arch, smoke=True), device="cpu")
+    assert step.opt.moment_dtype == "bf16"
+    params = step.lm.load_params(p0)
+    st = step.opt.init(params)
+    params, st, metrics = step.fn(params, st, batch)
+    for k, v in jm.items():
+        np.testing.assert_allclose(f32(metrics[k]), f32(v), **LOSS_TOL,
+                                   err_msg=k)
+    assert int(st.step) == int(js1.step) == 1
+    want, got, w0s = _flat(numpy_tree(jp1)), _flat(params), _flat(p0)
+    for path, w in want.items():
+        g, w0 = f32(got[path]), f32(w0s[path])
+        assert np.all(np.abs(g - f32(w)) <= step_bound(
+            w0, jopt.lr, jopt.weight_decay)), path
+    for name in ("mu", "nu"):
+        jm_, tm = _flat(numpy_tree(getattr(js1, name))), _flat(
+            getattr(st, name))
+        for path, w in jm_.items():
+            assert tm[path].dtype == torch.bfloat16, (name, path)
+            w = f32(w)
+            np.testing.assert_allclose(
+                f32(tm[path]), w, rtol=2e-2,
+                atol=2e-2 * np.abs(w).max() + 1e-12,
+                err_msg=f"{name} {path}")
+
+
+def test_grad_accumulation_carries_mtp():
+    """With ``accum_steps=2`` the step returns the last micro-batch's
+    metrics, ``mtp`` among them, as the reference's scan carry seeds and
+    returns it."""
+    cfg = get_config("deepseek-v3-671b", smoke=True)
+    batch = _batch(cfg.vocab, b=4)
+    step = build_train_step(cfg, remat="none", accum_steps=2, device="cpu")
+    params, _ = step.lm.init(0)
+    with torch.no_grad():
+        _, last = step.lm.loss_fn(params, {k: torch.as_tensor(v[2:])
+                                           for k, v in batch.items()})
+    _, _, metrics = step.fn(params, step.opt.init(params), batch)
+    assert sorted(metrics) == ["aux_lb", "aux_z", "loss", "mtp", "xent"]
+    for k, v in last.items():
+        np.testing.assert_allclose(f32(metrics[k]), f32(v), rtol=1e-6,
+                                   atol=1e-6, err_msg=k)
+    assert float(metrics["mtp"]) > 0

@@ -85,3 +85,20 @@ def test_driver_needs_a_card_by_default(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_main(COMMON + ["--ckpt-dir", str(tmp_path / "c")])
     assert not (tmp_path / "c").exists()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_driver_trains_and_resumes_deepseek(tmp_path, arch):
+    """The driver trains the deepseek smoke configs (deepseek-v3 with its
+    MTP loss and bf16 moments), checkpoints every 3 steps and, preempted
+    at step 5, resumes from 3 on the uninterrupted run's losses."""
+    common = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "6",
+              "--batch", "2", "--seq", "16", "--ckpt-every", "3"]
+    ref = train_main(common + ["--ckpt-dir", str(tmp_path / "a")])
+    assert len(ref["losses"]) == 6 and np.all(np.isfinite(ref["losses"]))
+    pre = train_main(common + ["--ckpt-dir", str(tmp_path / "b"),
+                               "--simulate-preemption-at", "5"])
+    assert pre.get("preempted_at") == 5
+    out = train_main(common + ["--ckpt-dir", str(tmp_path / "b")])
+    assert out["resumed_from"] == 3 and len(out["losses"]) == 3
+    np.testing.assert_allclose(out["losses"], ref["losses"][3:], rtol=1e-4)

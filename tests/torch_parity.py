@@ -6,6 +6,8 @@ back as float32 numpy arrays and are compared at the tolerances
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -100,3 +102,56 @@ class RefDraws:
         from repro.launch import scheduler as JS
         return np.asarray(JS._image_of(self._key(rid), self.cfg.n_img_tokens,
                                        self.cfg.d_model), np.float32)[0]
+
+
+class RouterPin:
+    """Records the expert ids the reference's ``router_topk`` picks and
+    replays them, call by call, in the port's, with gates from the port's
+    own router probabilities at those experts (``torch.where`` keeps the
+    router's own gates of a token whose choice did not move).  ``moved``
+    counts the tokens whose expert set the port's own router would have
+    changed."""
+
+    def __init__(self):
+        self.ids: list[np.ndarray] = []
+        self.moved = 0
+
+    @contextlib.contextmanager
+    def recording(self):
+        from repro.models import moe as jmoe
+        orig = jmoe.router_topk
+
+        def record(x, w_router, moe):
+            gate, idx, aux = orig(x, w_router, moe)
+            self.ids.append(np.array(idx))
+            return gate, idx, aux
+        jmoe.router_topk = record
+        try:
+            yield
+        finally:
+            jmoe.router_topk = orig
+
+    @contextlib.contextmanager
+    def replaying(self):
+        from repro_torch.models import moe as tmoe
+        orig = tmoe.router_topk
+        calls = iter(self.ids)
+
+        def replay(x, w_router, moe):
+            own_gate, own, aux = orig(x, w_router, moe)
+            idx = torch.as_tensor(next(calls)).to(own.dtype)
+            self.moved += int((idx.sort(-1).values != own.sort(-1).values)
+                              .any(-1).sum())
+            probs = torch.softmax(x.to(torch.float32) @ w_router, dim=-1)
+            gate = probs.gather(-1, idx)
+            gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+            # a token whose choice did not move keeps the router's own
+            # gates, so its gradients take the unpinned path bit for bit
+            same = (idx == own).all(-1, keepdim=True)
+            return torch.where(same, own_gate, gate), idx, aux
+        tmoe.router_topk = replay
+        try:
+            yield
+        finally:
+            tmoe.router_topk = orig
+        assert next(calls, None) is None, "the port routed fewer times"
