@@ -123,32 +123,44 @@ d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
    with one expert's group set to 0 rows and one to C;
 12. train: ``build_train_step`` on smollm-135m at full width (remat
    full, AdamW lr 1e-3 with the reference driver's cosine warm-up of 1
-   step), 20 steps at B=8, S=1024 from ``ShardedLoader(SyntheticCorpus)``:
-   the loss of every step, the median step ms (CUDA events, after 2
-   warm-up steps), tokens/s, model TFLOP/s (6·N_params + 6·L·S·d per
-   token, x4/3 for the remat) and peak memory, on ``[train]`` lines; the
-   mean of the last 5 losses must be below the first, and no kernel may
-   launch (training runs the plain paths, as the reference's does).  Then
-   one more step under ``torch.profiler`` (``[train-profile]``: busy and
-   idle share, operations), and the checks: remat none, full and dots
+   step), 20 steps at B=8, S=1024 from ``ShardedLoader(SyntheticCorpus)``,
+   eagerly (``graphs=False``) and then on the step's CUDA graph (its
+   default on the card: the whole step captured at the first call and
+   replayed), each from the seeded params (``train_pair``): the loss of
+   every step, the median step ms (CUDA events, after 2 warm-up steps),
+   tokens/s, model TFLOP/s (6·N_params + 6·L·S·d per token, x4/3 for
+   the remat), peak memory, and the graph's capture seconds and the
+   memory its run reserved, on ``[train]`` lines; the graph run must
+   equal the eager run bit for bit (every metric of every step, the
+   final params, moments and step counter); the mean of the last 5
+   losses must be below the first, and no kernel may launch (training
+   runs the plain paths, as the reference's does).  Then one more step
+   of each under ``torch.profiler`` (``[train-profile]``: busy and idle
+   share, operations), and the checks: remat none, full and dots
    give the same loss and gradients (1e-5 of each leaf's largest
    magnitude); ``accum_steps=2`` gives the full batch's update (rtol
    2e-2, atol 2e-3); a loss through ``use_kernels=True`` with params that
    require grad raises; one step on the card equals one on the CPU at
    B=1, S=128 (loss 1e-3 and gradient norm 1e-2 relative, each updated
    param within ``2·lr·(1 + wd·|p|)`` plus one bf16 step).  Last,
-   xlstm-125m at full width, 3 steps at B=4, S=512 (its train step's LM
-   has ``graphs=False``);
+   xlstm-125m at full width, 3 steps at B=4, S=512: first eagerly with
+   the sLSTM's gate weights cast to f32 at every step (the peak memory
+   before the cast was hoisted out of the loop), then eager and on its
+   graph as smollm's (its sLSTM loop captured in the train step's
+   graph), the first loss bit-equal to the per-step cast's, and the
+   largest change of the gate weights' gradients the hoisted cast makes;
 13. train driver: ``repro_torch.launch.train.main`` in this process on
    smollm-135m at full width, B=8, S=1024, remat full, 10 steps, in a
-   fresh temporary directory (removed at the end): (a) uninterrupted,
-   without checkpoints; (b) a checkpoint every 3 steps, preempted at step
-   7; (c) the same run again, which must resume from step 6, its four
-   losses (steps 6-9) within rtol 1e-4 of (a)'s (the reference's bound
-   for its resume test).  Each run's wall seconds and the loop's ms per
-   step (the gaps between the driver's calls of its straggler monitor,
-   saves included) on ``[driver]`` lines, and the disk space free before
-   (b).  (d) The checkpoint (``[ckpt]`` lines): (c)'s newest step restored
+   fresh temporary directory (removed at the end), on the train step's
+   graph (the driver's default on the card): (a) uninterrupted, without
+   checkpoints, once eagerly (``graphs=False``) and once on the graph,
+   the losses bit-equal; (b) a checkpoint every 3 steps, preempted at
+   step 7; (c) the same run again, which must resume from step 6 by
+   copying the checkpoint into the tensors the graph holds, its four
+   losses (steps 6-9) bit-equal to (a)'s.  Each run's wall seconds, the
+   loop's ms per step (the gaps between the driver's calls of its
+   straggler monitor, saves included) and the graphs it captured on
+   ``[driver]`` lines, and the disk space free before (b).  (d) The checkpoint (``[ckpt]`` lines): (c)'s newest step restored
    into a card tree (seconds), saved again (the ms ``save()`` takes to
    return, its synchronous host copy, then the seconds of ``wait()``, the
    background write with its CRC), its bytes and leaves; restored into a
@@ -162,7 +174,8 @@ d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
    LayerNorms); serving as 5 over 8 requests of frames only (16-128
    positions of input, 16-64 new tokens), whose frames come from the
    scheduler's ``Draws``; then 3 train steps at B=4, S=1024, remat full,
-   AdamW lr 1e-3: finite losses, ms a step and peak memory, no launch;
+   AdamW lr 1e-3, eager and on the graph as 12: finite losses, ms a step,
+   peak memory, capture seconds, the graph bit-equal, no launch;
 15. llama-3.2-vision-11b: prefill as 4 with a seeded (4, 1600, 4096) bf16
    image: exactly 40 flash-attention launches (32 causal, 8 non-causal
    over the image) and 81 RMSNorm; serving as 5 over 8 requests (prompts
@@ -185,9 +198,10 @@ d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
 17. deepseek-v3-671b at 5 layers: as 16, with 11 RMSNorm and 4
    grouped-matmul launches a prefill; then 3 train steps at 3 layers
    (its dense layers and the MTP head, 4.81 B params) at B=2, S=1024,
-   remat full, AdamW lr 1e-3 with bf16 moments: the losses and the
-   ``mtp`` metric finite, the moments bf16, ms a step and peak memory,
-   no launch.  Each phase's seconds on ``[deepseek]`` lines.
+   remat full, AdamW lr 1e-3 with bf16 moments, eager and on the graph
+   as 12: the losses and the ``mtp`` metric finite, the moments bf16, ms
+   a step, peak memory, capture seconds, the graph bit-equal, no
+   launch.  Each phase's seconds on ``[deepseek]`` lines.
 
 Each path's launch counts are set to 0 just before it and read just
 after; the kernels' ``launches`` are their sums over phases 4-10 and
@@ -204,6 +218,7 @@ card, or a directory that holds this file and nothing else of the repo.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import shutil
 import subprocess
@@ -247,6 +262,7 @@ from repro_torch.launch.serve import make_trace  # noqa: E402
 from repro_torch.launch.steps import build_train_step  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.moe import capacity_of  # noqa: E402
 from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
@@ -296,7 +312,7 @@ GMM_F32_F_CUT = 8
 #: training (phase 12): smollm-135m at B=8, S=1024 with full remat, as
 #: the reference's driver trains (AdamW lr 1e-3, cosine warm-up 1)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 1024, 20, 2, 1e-3
-#: xlstm-125m's few steps at B=4, S=512 (its sLSTM loops from the host)
+#: xlstm-125m's few steps at B=4, S=512 (its sLSTM loops over 512 steps)
 X_TRAIN_B, X_TRAIN_S, X_TRAIN_STEPS = 4, 512, 3
 #: the card's train step against the CPU's, at B=1, S=128: loss and the
 #: global gradient norm relative tolerances
@@ -309,9 +325,6 @@ ACCUM_RTOL, ACCUM_ATOL = 2e-2, 2e-3
 #: the train driver (phase 13): steps, checkpoint cadence, the preempted
 #: step and the step the resumed run must start from
 DRIVER_STEPS, DRIVER_EVERY, DRIVER_PREEMPT, DRIVER_RESUME = 10, 3, 7, 6
-#: the resumed run's losses against the uninterrupted run's (the
-#: reference's resume test, tests/test_substrate.py:171-172)
-RESUME_RTOL = 1e-4
 #: the frontends' models (phases 14 and 15), at full width and depth
 MARCH = "musicgen-large"
 VARCH = "llama-3.2-vision-11b"
@@ -1552,9 +1565,10 @@ def _copy(tree, device):
 
 
 def train_run(step, params, opt_state, loader, steps: int, lr_fn):
-    """``steps`` steps; each metric of each step (``{name: [value]}``),
-    and each step's ms between CUDA events (the device's timeline, idle
-    gaps included)."""
+    """``steps`` steps; each metric of each step (``{name: [value]}``;
+    a copy on the card, since a graph's metrics are static tensors that
+    the next step overwrites), and each step's ms between CUDA events
+    (the device's timeline, idle gaps included)."""
     metrics, events = [], []
     for i in range(steps):
         batch = loader.batch_at(i)
@@ -1564,7 +1578,7 @@ def train_run(step, params, opt_state, loader, steps: int, lr_fn):
         params, opt_state, m = step.fn(params, opt_state, batch,
                                        lr_scale=lr_fn(i))
         end.record()
-        metrics.append(m)
+        metrics.append({k: v.clone() for k, v in m.items()})
         events.append((start, end))
     torch.cuda.synchronize()
     return params, opt_state, \
@@ -1685,68 +1699,154 @@ def check_guard(cfg, params, batch) -> None:
     raise AssertionError("a loss through the kernels took gradients")
 
 
+def state_leaves(params, opt_state) -> list:
+    """The params, the step counter and the moments, in one order."""
+    return [*tree_leaves(params), opt_state.step, *tree_leaves(opt_state.mu),
+            *tree_leaves(opt_state.nu)]
+
+
+def train_pair(cfg, opt: AdamW, batches, steps: int, lr_fn,
+               warmup: int = 1) -> tuple[dict, tuple]:
+    """``steps`` train steps of ``cfg`` (remat full) from the seeded
+    params, eagerly (``graphs=False``) and then on the step's CUDA graph
+    (``build_train_step``'s default on the card), each run with params and
+    moments of its own: its median ms a step (CUDA events, after
+    ``warmup`` steps; the graph's first step captures it), peak memory and
+    launches (none may launch); the graph run's capture seconds and the
+    memory its run left reserved (the graph's pool and static buffers).
+    The graph run is held to the eager run bit for bit: every metric of
+    every step, and the final params, step counter and moments, the
+    eager run's copied to the host first so that both states need not
+    fit on the card at once.  The step returns no gradient; its
+    moments, bit-equal after each run, are built from each step's
+    gradients.  Returns the records and the graph run's (step, params,
+    opt_state)."""
+    rec, held = {}, None
+    for mode in ("eager", "graph"):
+        step = build_train_step(cfg, opt=opt, remat="full", device=DEVICE,
+                                graphs=mode == "graph")
+        params, _ = step.lm.init(SEED)
+        opt_state = step.opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reserved = torch.cuda.memory_reserved()
+        before = graphs.stats()
+        reset_counts()
+        params, opt_state, hist, ms = train_run(step, params, opt_state,
+                                                batches, steps, lr_fn)
+        counts = read_counts()
+        after = graphs.stats()
+        r = {"metrics": hist, "losses": hist["loss"], "step_ms": ms,
+             "median_step_ms": float(np.median(ms[warmup:])),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "reserved_gb": (torch.cuda.memory_reserved() - reserved) / 1e9,
+             "graphs": after["graphs"] - before["graphs"],
+             "capture_s": after["capture_s"] - before["capture_s"],
+             "launches": counts}
+        rec[mode] = r
+        if any(counts.values()) or not all(
+                np.all(np.isfinite(v)) for v in hist.values()):
+            raise AssertionError(f"{cfg.name} train ({mode}): launches "
+                                 f"{counts}, metrics {hist}")
+        if mode == "eager":
+            host = [t.to("cpu", copy=True)
+                    for t in state_leaves(params, opt_state)]
+            del step, params, opt_state
+        else:
+            held = (step, params, opt_state)
+    e, g = rec["eager"], rec["graph"]
+    if g["graphs"] != 1:
+        raise AssertionError(f"{cfg.name}: the graph run captured "
+                             f"{g['graphs']} graphs, not 1")
+    differ = [(i, (a.float() - b.cpu().float()).abs().max().item())
+              for i, (a, b) in enumerate(zip(host, state_leaves(*held[1:])))
+              if not _bits_equal(a, b.cpu())]
+    same_metrics = e["metrics"] == g["metrics"]
+    rec["bit_equal"] = {"metrics": same_metrics, "leaves": len(host),
+                        "leaves_differ": differ}
+    print(f"[train] {cfg.name} eager: median {e['median_step_ms']:.2f} ms a "
+          f"step (steps " + " ".join(f"{x:.1f}" for x in e["step_ms"])
+          + f"), peak memory {e['peak_gb']:.2f} GB, {e['reserved_gb']:.2f} GB "
+          f"reserved by its run (the allocator's cache); graph: median "
+          f"{g['median_step_ms']:.2f} ms a step (steps "
+          + " ".join(f"{x:.1f}" for x in g["step_ms"])
+          + f"), {g['graphs']} graph captured in {g['capture_s']:.2f} s, "
+          f"{g['reserved_gb']:.2f} GB reserved by its run (pool and static "
+          f"buffers), peak memory {g['peak_gb']:.2f} GB; graph vs eager: "
+          f"the metrics of all {steps} steps "
+          + ("bit-equal" if same_metrics else "DIFFER") + f", "
+          f"{len(host) - len(differ)} of {len(host)} state leaves bit-equal"
+          + (f" (max abs diff {max(d for _, d in differ):.3e})"
+             if differ else "") + f"; kernel launches {e['launches']}, "
+          f"{g['launches']}")
+    if not same_metrics or differ:
+        raise AssertionError(f"{cfg.name}: the graph run differs from the "
+                             f"eager run: metrics {e['metrics']} vs "
+                             f"{g['metrics']}, leaves {differ[:10]}")
+    return rec, held
+
+
 def phase_train() -> dict:
     """smollm-135m trained at full width (remat full, B=8, S=1024, 20
-    steps) and xlstm-125m (B=4, S=512, 3 steps), the five checks, and one
-    smollm step under ``torch.profiler``."""
+    steps) eager and on its graph, and xlstm-125m (B=4, S=512, 3 steps);
+    one step of each smollm path under ``torch.profiler``, and the five
+    checks."""
     t0 = time.perf_counter()
     cfg = get_config(ARCH)
-    step = build_train_step(cfg, opt=AdamW(lr=TRAIN_LR), remat="full",
-                            device=DEVICE)
-    params, _ = step.lm.init(SEED)
-    p_init = _copy(params, DEVICE)
-    n_params = sum(t.numel() for t in tree_leaves(params))
     loader = ShardedLoader(SyntheticCorpus(cfg.vocab, seed=SEED), TRAIN_B,
                            TRAIN_S)
     lr_fn = cosine_schedule(1.0, warmup=1, total=TRAIN_STEPS)
-    opt_state = step.opt.init(params)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    params, opt_state, hist, ms = train_run(step, params, opt_state,
-                                            loader, TRAIN_STEPS, lr_fn)
-    losses = hist["loss"]
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    if any(counts.values()):
-        raise AssertionError(f"the train step launched kernels: {counts}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"train losses not finite: {losses}")
+    pair, (step, params, opt_state) = train_pair(
+        cfg, AdamW(lr=TRAIN_LR), loader, TRAIN_STEPS, lr_fn,
+        warmup=TRAIN_WARMUP)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    losses = pair["eager"]["losses"]
     tail = float(np.mean(losses[-5:]))
     if not tail < losses[0]:
         raise AssertionError(f"the loss did not fall: first {losses[0]}, "
                              f"mean of the last 5 {tail}")
-    step_ms = float(np.median(ms[TRAIN_WARMUP:]))
     tokens = TRAIN_B * TRAIN_S
     flops = (6 * n_params + 6 * cfg.n_layers * TRAIN_S * cfg.d_model) \
         * tokens * 4 / 3
     rec = {"arch": cfg.name, "B": TRAIN_B, "S": TRAIN_S, "remat": "full",
-           "steps": TRAIN_STEPS, "losses": losses, "step_ms": ms,
-           "median_step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-           "model_tflops": flops / step_ms / 1e9, "peak_gb": peak,
-           "loss_margin": losses[0] - tail, "launches": counts,
-           "n_params": n_params}
+           "steps": TRAIN_STEPS, "losses": losses, "n_params": n_params,
+           "loss_margin": losses[0] - tail, **pair}
     print(f"[train] {cfg.name} ({n_params / 1e6:.1f}M params) B={TRAIN_B} "
           f"S={TRAIN_S} remat full, AdamW lr {TRAIN_LR}, cosine warm-up 1: "
           f"losses " + " ".join(f"{x:.4f}" for x in losses))
-    print(f"[train] {cfg.name}: median {step_ms:.2f} ms a step (CUDA "
-          f"events, after {TRAIN_WARMUP} warm-up steps; steps "
-          + " ".join(f"{x:.1f}" for x in ms) + f"), {rec['tokens_per_s']:.0f}"
-          f" tokens/s, model {rec['model_tflops']:.1f} TFLOP/s "
-          f"({flops / 1e12:.2f} TFLOP a step: 6·N + 6·L·S·d per token, "
-          f"x4/3 for the remat), peak memory {peak:.2f} GB; the loss fell "
-          f"from {losses[0]:.4f} to {tail:.4f} (mean of the last 5, margin "
-          f"{rec['loss_margin']:.4f}); kernel launches {counts} (the train "
-          "step runs the plain paths)")
+    for mode in ("eager", "graph"):
+        r = pair[mode]
+        r["tokens_per_s"] = tokens / r["median_step_ms"] * 1e3
+        r["model_tflops"] = flops / r["median_step_ms"] / 1e9
+        print(f"[train] {cfg.name} {mode}: median {r['median_step_ms']:.2f} "
+              f"ms a step (CUDA events, after {TRAIN_WARMUP} warm-up steps), "
+              f"{r['tokens_per_s']:.0f} tokens/s, model "
+              f"{r['model_tflops']:.1f} TFLOP/s ({flops / 1e12:.2f} TFLOP a "
+              f"step: 6·N + 6·L·S·d per token, x4/3 for the remat), peak "
+              f"memory {r['peak_gb']:.2f} GB")
+    print(f"[train] the loss fell from {losses[0]:.4f} to {tail:.4f} (mean "
+          f"of the last 5, margin {rec['loss_margin']:.4f}); the train step "
+          "runs the plain paths")
     batch = loader.batch_at(TRAIN_STEPS)
-    rec["profile"] = phase_train_profile(step, params, opt_state, batch)
-    del params, opt_state
+    eager = build_train_step(cfg, opt=AdamW(lr=TRAIN_LR), remat="full",
+                             device=DEVICE, graphs=False)
+    p = _copy(params, DEVICE)
+    st = type(opt_state)(opt_state.step.clone(), _copy(opt_state.mu, DEVICE),
+                         _copy(opt_state.nu, DEVICE))
+    rec["profile"] = {
+        "eager": phase_train_profile(
+            "eager", lambda: eager.fn(p, st, batch)),
+        "graph": phase_train_profile(
+            "graph", lambda: step.fn(params, opt_state, batch))}
+    del eager, p, st, step, params, opt_state
     torch.cuda.empty_cache()
+    p_init, _ = LM(cfg, device=DEVICE).init(SEED)
     rec["remat_worst"] = check_remat(cfg, p_init, batch)
     rec["accum_used"] = check_accumulation(cfg, p_init, batch)
     check_guard(cfg, p_init, batch)
     rec["parity"] = check_train_parity(cfg, p_init)
-    del p_init, step
+    del p_init
     torch.cuda.empty_cache()
     rec["xlstm"] = phase_train_xlstm()
     rec["phase_s"] = time.perf_counter() - t0
@@ -1755,15 +1855,12 @@ def phase_train() -> dict:
     return rec
 
 
-def phase_train_profile(step, params, opt_state, batch) -> dict:
-    """One smollm train step under ``torch.profiler``: the device's busy
-    and idle share of the window, and its operation count."""
-    p = _copy(params, DEVICE)
-    st = type(opt_state)(opt_state.step.clone(),
-                         _copy(opt_state.mu, DEVICE),
-                         _copy(opt_state.nu, DEVICE))
-    fn = lambda: step.fn(p, st, batch)  # noqa: E731
-    rec, dev = profile_window(fn, f"{ARCH}_train_step", "train_window")
+def phase_train_profile(mode: str, fn) -> dict:
+    """One smollm train step (``fn``: eager, or a replay of its graph)
+    under ``torch.profiler``: the device's busy and idle share of the
+    window, and its operation count; then three unprofiled steps."""
+    rec, dev = profile_window(fn, f"{ARCH}_train_step_{mode}",
+                              "train_window")
     n = 3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1771,40 +1868,103 @@ def phase_train_profile(step, params, opt_state, batch) -> dict:
         fn()
         torch.cuda.synchronize()
     rec["step_ms"] = (time.perf_counter() - t0) / n * 1e3
-    print(f"[train-profile] {ARCH} B={TRAIN_B} S={TRAIN_S} remat full: "
-          f"window {rec['window_ms']:.2f} ms (host span of the profiled "
-          f"step), device time {rec['device_ms']:.2f} ms in "
-          f"{rec['device_ops']} operations, busy {rec['busy']:.3f}, idle "
-          f"{rec['idle']:.3f}; unprofiled {rec['step_ms']:.2f} ms a step, "
-          f"device time / that {rec['device_ms'] / rec['step_ms']:.3f}")
-    print_breakdown(f"[train-profile] {ARCH}", rec, dev)
+    tag = f"[train-profile] {ARCH} {mode}"
+    print(f"{tag} B={TRAIN_B} S={TRAIN_S} remat full: window "
+          f"{rec['window_ms']:.2f} ms (host span of the profiled step), "
+          f"device time {rec['device_ms']:.2f} ms in {rec['device_ops']} "
+          f"operations, busy {rec['busy']:.3f}, idle {rec['idle']:.3f}; "
+          f"unprofiled {rec['step_ms']:.2f} ms a step, device time / that "
+          f"{rec['device_ms'] / rec['step_ms']:.3f}")
+    print_breakdown(tag, rec, dev)
     return rec
 
 
+def _slstm_scan_cast_per_step(p, x, carry):
+    """The sLSTM loop with the gate weights cast to f32 at every step, as
+    the reference's ``_slstm_step`` casts them (and the port did before it
+    cast them once per sequence): the "before" of phase 12's xlstm peak."""
+    hs = []
+    for t in range(x.shape[1]):
+        carry, h = xlstm_mod._slstm_step(
+            p["w_gates"].to(torch.float32), p["r_gates"].to(torch.float32),
+            carry, x[:, t])
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x.dtype), carry
+
+
 def phase_train_xlstm() -> dict:
-    """xlstm-125m at full width, a few steps: the LM of the train step is
-    built with ``graphs=False`` (the sLSTM's graph refuses gradients)."""
+    """xlstm-125m at full width, a few steps: first eagerly with the sLSTM
+    gate weights cast at every step (the peak before the cast was
+    hoisted), then eager and on its graph (``train_pair``), whose sLSTM
+    loop the train step's graph captures (the LM has ``graphs=False``);
+    and the largest change of the gate weights' gradients that the
+    hoisted cast makes, at the seeded params."""
     cfg = get_config(XARCH)
-    step = build_train_step(cfg, opt=AdamW(lr=TRAIN_LR), remat="full",
-                            device=DEVICE)
-    params, _ = step.lm.init(SEED)
     loader = ShardedLoader(SyntheticCorpus(cfg.vocab, seed=SEED),
                            X_TRAIN_B, X_TRAIN_S)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    _, _, hist, ms = train_run(step, params, step.opt.init(params),
-                               loader, X_TRAIN_STEPS, lambda i: 1.0)
-    losses = hist["loss"]
-    counts = read_counts()
-    if any(counts.values()) or not all(np.isfinite(losses)):
-        raise AssertionError(f"xlstm train: launches {counts}, losses "
-                             f"{losses}")
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[train] {cfg.name} B={X_TRAIN_B} S={X_TRAIN_S} remat full "
-          f"(graphs=False): losses " + " ".join(f"{x:.4f}" for x in losses)
-          + "; step ms " + " ".join(f"{x:.1f}" for x in ms)
-          + f"; peak memory {peak:.2f} GB")
-    return {"losses": losses, "step_ms": ms, "peak_gb": peak}
+    step = build_train_step(cfg, opt=AdamW(lr=TRAIN_LR), remat="full",
+                            device=DEVICE, graphs=False)
+    params, _ = step.lm.init(SEED)
+    batch = loader.batch_at(0)
+    grads = {}
+    with mock.patch.object(xlstm_mod, "_slstm_scan",
+                           _slstm_scan_cast_per_step):
+        grads["per step"] = step.grads(params, batch)[0]
+    grads["once"] = step.grads(params, batch)[0]
+    change = {}
+    for name in ("w_gates", "r_gates"):
+        for path, a, b in _named_leaves(grads["per step"], grads["once"]):
+            if path.endswith(name):
+                change[path] = ((a.float() - b.float()).abs().max()
+                                / b.float().abs().max().clamp_min(1e-30)
+                                ).item()
+    del grads, params, step
+    with mock.patch.object(xlstm_mod, "_slstm_scan",
+                           _slstm_scan_cast_per_step):
+        before_pair = build_train_step(cfg, opt=AdamW(lr=TRAIN_LR),
+                                       remat="full", device=DEVICE,
+                                       graphs=False)
+        p, _ = before_pair.lm.init(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, hist, ms = train_run(before_pair, p, before_pair.opt.init(p),
+                                   loader, X_TRAIN_STEPS, lambda i: 1.0)
+        before = {"step_ms": ms, "losses": hist["loss"],
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del before_pair, p
+    torch.cuda.empty_cache()
+    pair, held = train_pair(cfg, AdamW(lr=TRAIN_LR), loader, X_TRAIN_STEPS,
+                            lambda i: 1.0)
+    del held
+    torch.cuda.empty_cache()
+    same_first = before["losses"][0] == pair["eager"]["losses"][0]
+    print(f"[train] {cfg.name} B={X_TRAIN_B} S={X_TRAIN_S} remat full: gate "
+          f"weights cast at every step (before): step ms "
+          + " ".join(f"{x:.1f}" for x in before["step_ms"])
+          + f", peak memory {before['peak_gb']:.2f} GB; cast once a "
+          f"sequence: eager "
+          f"peak {pair['eager']['peak_gb']:.2f} GB, graph peak "
+          f"{pair['graph']['peak_gb']:.2f} GB; first-step loss "
+          + ("bit-equal" if same_first else "DIFFERS")
+          + " (the forward is unchanged); the gate weights' gradients "
+          "change by up to " + ", ".join(f"{k} {v:.3e}"
+                                        for k, v in change.items())
+          + " of a leaf's largest magnitude")
+    if not same_first:
+        raise AssertionError(f"xlstm: hoisting the cast changed the loss: "
+                             f"{before['losses'][0]} vs "
+                             f"{pair['eager']['losses'][0]}")
+    return {"before": before, "grad_change": change, **pair}
+
+
+def _named_leaves(a, b, path=""):
+    """(path, leaf of a, leaf of b) over two trees of the same shape."""
+    if isinstance(a, dict):
+        for k in sorted(a):
+            yield from _named_leaves(a[k], b[k], f"{path}/{k}")
+    else:
+        yield path, a, b
 
 
 CLOCKS: list = []
@@ -1825,27 +1985,39 @@ class StepClock(StragglerMonitor):
         return super().step(host_times_s)
 
 
-def driver_run(tag: str, argv: list) -> dict:
-    """``launch.train.main(argv)`` with its wall seconds and the loop's
-    ms per step (mean gap between monitor calls: the first step's own
-    time, and the final ``wait()``, fall outside the gaps)."""
+def driver_run(tag: str, argv: list, eager: bool = False) -> dict:
+    """``launch.train.main(argv)`` with its wall seconds, the loop's ms
+    per step (mean gap between monitor calls: the first step's own time,
+    which captures the graph, and the final ``wait()``, fall outside the
+    gaps) and the graphs it captured; ``eager`` builds its train step
+    with ``graphs=False``."""
     CLOCKS.clear()
-    with mock.patch.object(train_driver, "StragglerMonitor", StepClock):
+    build = functools.partial(build_train_step, graphs=not eager)
+    before = graphs.stats()
+    with mock.patch.object(train_driver, "StragglerMonitor", StepClock), \
+            mock.patch.object(train_driver, "build_train_step", build):
         t0 = time.perf_counter()
         out = train_driver.main(argv)
         t1 = time.perf_counter()
+    after = graphs.stats()
     stamps = CLOCKS[0].stamps
     losses = out["losses"]
     if len(stamps) < 2 or not all(np.isfinite(losses)):
         raise AssertionError(f"driver run {tag}: losses {losses}")
     gaps = np.diff(stamps) * 1e3
     out.update(wall_s=t1 - t0, gap_ms=gaps.tolist(),
-               ms_per_step=float(np.mean(gaps)), tail_s=t1 - stamps[-1])
+               ms_per_step=float(np.mean(gaps)), tail_s=t1 - stamps[-1],
+               graphs=after["graphs"] - before["graphs"],
+               capture_s=after["capture_s"] - before["capture_s"])
+    if out["graphs"] != (0 if eager else 1):
+        raise AssertionError(f"driver run {tag} captured {out['graphs']} "
+                             "graphs")
     print(f"[driver] ({tag}) {' '.join(argv[-4:])}: {len(losses)} steps in "
           f"{out['wall_s']:.2f} s wall, the loop {out['ms_per_step']:.1f} ms "
           f"a step (gaps " + " ".join(f"{g:.1f}" for g in gaps) + "), "
-          f"{out['tail_s']:.3f} s from the last step to the return; losses "
-          + " ".join(f"{x:.4f}" for x in losses))
+          f"{out['tail_s']:.3f} s from the last step to the return; "
+          f"{out['graphs']} graph captured in {out['capture_s']:.2f} s; "
+          "losses " + " ".join(f"{x:.4f}" for x in losses))
     return out
 
 
@@ -1928,8 +2100,10 @@ def phase_checkpoint(directory: Path) -> dict:
 
 
 def phase_train_driver() -> dict:
-    """13. The train driver at full width: uninterrupted, preempted,
-    resumed; then the checkpoint itself."""
+    """13. The train driver at full width on its graph: uninterrupted
+    (and once more with ``graphs=False``, the losses bit-equal),
+    preempted, resumed (the losses bit-equal to the uninterrupted run's);
+    then the checkpoint itself."""
     t0 = time.perf_counter()
     common = ["--arch", ARCH, "--device", DEVICE, "--seed", str(SEED),
               "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
@@ -1938,6 +2112,8 @@ def phase_train_driver() -> dict:
     d = Path(tempfile.mkdtemp(prefix="repro_torch_ckpt_"))
     try:
         reset_counts()
+        full_eager = driver_run("a eager", common + [
+            "--ckpt-dir", str(d / "a0"), "--ckpt-every", "0"], eager=True)
         full = driver_run("a", common + ["--ckpt-dir", str(d / "a"),
                                          "--ckpt-every", "0"])
         free = shutil.disk_usage(d).free
@@ -1965,17 +2141,28 @@ def phase_train_driver() -> dict:
                                       - full["losses"][:DRIVER_PREEMPT])
                                / np.abs(full["losses"][:DRIVER_PREEMPT])))
         print(f"[driver] resumed losses against the uninterrupted run's: "
-              f"max relative difference {rel:.3e} (rtol {RESUME_RTOL}); the "
-              f"preempted run's first {DRIVER_PREEMPT}: {pre_rel:.3e}; "
-              f"the loop a step: (a) {full['ms_per_step']:.1f} ms, (b) "
+              f"max relative difference {rel:.3e} ("
+              + ("bit-equal" if got.tolist() == want.tolist() else "DIFFER")
+              + f"); the preempted run's first {DRIVER_PREEMPT}: "
+              f"{pre_rel:.3e}; (a) on the graph against (a) eager: "
+              + ("bit-equal" if full["losses"] == full_eager["losses"]
+                 else "DIFFER")
+              + f"; the loop a step: (a) eager "
+              f"{full_eager['ms_per_step']:.1f} ms, (a) "
+              f"{full['ms_per_step']:.1f} ms, (b) "
               f"{pre['ms_per_step']:.1f} ms "
               f"({pre['ms_per_step'] / full['ms_per_step']:.2f}x), (c) "
               f"{resumed['ms_per_step']:.1f} ms; kernel launches {counts}")
-        np.testing.assert_allclose(got, want, rtol=RESUME_RTOL)
+        if got.tolist() != want.tolist() or \
+                full["losses"] != full_eager["losses"]:
+            raise AssertionError(
+                f"driver losses: resumed {got.tolist()} vs {want.tolist()}; "
+                f"graph {full['losses']} vs eager {full_eager['losses']}")
         ckpt = phase_checkpoint(d / "b")
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    rec = {"a": full, "b": pre, "c": resumed, "ckpt": ckpt,
+    rec = {"a_eager": full_eager, "a": full, "b": pre, "c": resumed,
+           "ckpt": ckpt,
            "free_gb": free / 1e9, "resume_rel": rel, "launches": counts,
            "phase_s": time.perf_counter() - t0}
     print(f"[driver] phase 13 took {rec['phase_s']:.1f} s")
@@ -2002,31 +2189,17 @@ class FrameBatches:
 def phase_frontend_train() -> dict:
     """14 (c). musicgen-large trained at full width and depth on seeded
     frames: ``M_TRAIN_STEPS`` steps at B=4, S=1024, remat full, AdamW lr
-    1e-3; the losses finite and no kernel launched."""
+    1e-3, eager and on its graph (``train_pair``)."""
     cfg = get_config(MARCH)
-    step = build_train_step(cfg, opt=AdamW(lr=TRAIN_LR), remat="full",
-                            device=DEVICE)
-    params, _ = step.lm.init(SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    _, _, hist, ms = train_run(step, params, step.opt.init(params),
-                               FrameBatches(cfg, M_TRAIN_B, M_TRAIN_S),
-                               M_TRAIN_STEPS, lambda i: 1.0)
-    losses = hist["loss"]
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    if any(counts.values()) or not all(np.isfinite(losses)):
-        raise AssertionError(f"{MARCH} train: launches {counts}, losses "
-                             f"{losses}")
+    pair, held = train_pair(cfg, AdamW(lr=TRAIN_LR),
+                            FrameBatches(cfg, M_TRAIN_B, M_TRAIN_S),
+                            M_TRAIN_STEPS, lambda i: 1.0)
+    del held
+    torch.cuda.empty_cache()
     print(f"[train] {cfg.name} B={M_TRAIN_B} S={M_TRAIN_S} remat full, "
           f"AdamW lr {TRAIN_LR}: losses "
-          + " ".join(f"{x:.4f}" for x in losses) + "; step ms "
-          + " ".join(f"{x:.1f}" for x in ms) + f"; peak memory {peak:.2f} "
-          f"GB; kernel launches {counts}")
-    del step, params
-    torch.cuda.empty_cache()
-    return {"losses": losses, "step_ms": ms, "peak_gb": peak}
+          + " ".join(f"{x:.4f}" for x in pair["eager"]["losses"]))
+    return pair
 
 
 def phase_frontends(device: dict) -> list:
@@ -2142,42 +2315,28 @@ def phase_deepseek(arch: str, n_layers: int, phase: int, device: dict
 def phase_deepseek_train() -> dict:
     """17 (d).  deepseek-v3 at full width and ``DS_TRAIN_LAYERS`` layers
     (all dense) with its MTP head: ``DS_TRAIN_STEPS`` steps at B=2,
-    S=1024, remat full, AdamW lr 1e-3 with the config's bf16 moments.  The
-    losses and the ``mtp`` metric finite, the moments bf16, no kernel
-    launched."""
+    S=1024, remat full, AdamW lr 1e-3 with the config's bf16 moments,
+    eager and on its graph (``train_pair``); the ``mtp`` metric finite
+    and the moments bf16."""
     cfg = dataclasses.replace(get_config(DS3), n_layers=DS_TRAIN_LAYERS)
-    step = build_train_step(
-        cfg, opt=AdamW(lr=TRAIN_LR, moment_dtype=cfg.opt_moment_dtype),
-        remat="full", device=DEVICE)
-    params, _ = step.lm.init(SEED)
-    opt_state = step.opt.init(params)
-    n_params = sum(t.numel() for t in _leaves(params))
-    moments = [t.dtype for t in _leaves(opt_state.mu)] + [
-        t.dtype for t in _leaves(opt_state.nu)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    params, opt_state, hist, ms = train_run(
-        step, params, opt_state, FrameBatches(cfg, DS_TRAIN_B, DS_TRAIN_S),
-        DS_TRAIN_STEPS, lambda i: 1.0)
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    losses, mtp = hist["loss"], hist["mtp"]
-    if any(counts.values()) or not all(np.isfinite(losses + mtp)) or \
-            set(moments) != {torch.bfloat16}:
-        raise AssertionError(f"{DS3} train: launches {counts}, losses "
-                             f"{losses}, mtp {mtp}, moment dtypes "
-                             f"{set(moments)}")
+    pair, held = train_pair(
+        cfg, AdamW(lr=TRAIN_LR, moment_dtype=cfg.opt_moment_dtype),
+        FrameBatches(cfg, DS_TRAIN_B, DS_TRAIN_S), DS_TRAIN_STEPS,
+        lambda i: 1.0)
+    n_params = sum(t.numel() for t in _leaves(held[1]))
+    moments = {t.dtype for t in [*_leaves(held[2].mu),
+                                 *_leaves(held[2].nu)]}
+    del held
+    torch.cuda.empty_cache()
+    losses, mtp = pair["eager"]["losses"], pair["eager"]["metrics"]["mtp"]
+    if moments != {torch.bfloat16}:
+        raise AssertionError(f"{DS3} train: moment dtypes {moments}")
     print(f"[train] {DS3} at {DS_TRAIN_LAYERS} layers with the MTP head "
           f"({n_params / 1e9:.2f} B params) B={DS_TRAIN_B} S={DS_TRAIN_S} "
           f"remat full, AdamW lr {TRAIN_LR} with bf16 moments: losses "
           + " ".join(f"{x:.4f}" for x in losses) + "; mtp "
-          + " ".join(f"{x:.4f}" for x in mtp) + "; step ms "
-          + " ".join(f"{x:.1f}" for x in ms) + f"; peak memory {peak:.2f} "
-          f"GB; kernel launches {counts}")
-    del step, params, opt_state
-    torch.cuda.empty_cache()
-    return {"losses": losses, "mtp": mtp, "step_ms": ms, "peak_gb": peak}
+          + " ".join(f"{x:.4f}" for x in mtp))
+    return pair
 
 
 def build_model(arch: str, n_layers: int | None = None):

@@ -1,8 +1,10 @@
-"""CUDA graphs of the serving steps: the counterpart of the reference's
-``jax.jit`` of ``LM.decode_step`` (``_JIT_MEMO``, ``_jit_cache`` and
-``_jitted_step`` in ``repro.launch.scheduler``), of its prefill side step
-(``_prefill_fn``, a ``lax.scan`` of gated decode steps) and of the sLSTM's
-``lax.scan`` (``models/xlstm.py``).
+"""CUDA graphs of the serving steps and of the train step: the
+counterpart of the reference's ``jax.jit`` of ``LM.decode_step``
+(``_JIT_MEMO``, ``_jit_cache`` and ``_jitted_step`` in
+``repro.launch.scheduler``), of its prefill side step (``_prefill_fn``, a
+``lax.scan`` of gated decode steps), of the sLSTM's ``lax.scan``
+(``models/xlstm.py``) and of the train step, jitted with params and
+moments donated (``repro.launch.steps.build_train_step``).
 
 A graph bakes in the address of every tensor it reads or writes.  So a
 :class:`StepGraph` owns static inputs (``tokens`` (B, 1) int64, or
@@ -22,6 +24,13 @@ the eager step.
 does, with a strong reference to the model and to the params, keyed on
 (B, s_max, vector_pos, use) and the params' identity.  ``release`` drops
 every memoised graph and its memory.
+
+A :class:`TrainGraph` holds the whole train step (forward, remat
+recompute, backward, gradient accumulation and the AdamW update) over
+static batch buffers, a static ``lr_scale`` and static metrics; it reads
+and writes the caller's params and moments where they lie, as AdamW
+updates them in place.  ``launch/steps.build_train_step`` keeps one per
+train step.
 
 Launch counters: a kernel wrapper adds to its ``.launches`` when its
 Python code runs, which under a graph is once, at capture, when nothing
@@ -44,8 +53,12 @@ from ..kernels.ssd_scan import ops as ssd_ops
 from ..models import moe
 from ..models.layers import BF16
 from ..models.lm import _map_cache
+from ..optim.adamw import tree_leaves
 
-__all__ = ["Graph", "StepGraph", "step_graph", "memo", "release", "stats"]
+F32 = torch.float32
+
+__all__ = ["Graph", "StepGraph", "TrainGraph", "copy_into", "step_graph",
+           "memo", "release", "stats"]
 
 #: the kernel wrappers whose ``.launches`` a replay adds to
 COUNTED = (rms_ops.rmsnorm, fa_ops.flash_attention, ml_ops.mlstm_chunk,
@@ -105,20 +118,20 @@ def _refuse_patched(lm) -> None:
             ffn == "moe" for _, ffn in lm.cfg.layer_kinds()):
         raise RuntimeError(
             "moe.router_topk is replaced: a CUDA graph of an MoE model "
-            "would replay the routing of its capture; serve with "
+            "would replay the routing of its capture; run with "
             "graphs=False while it is")
 
 
-def _copy_back(old, new) -> None:
+def copy_into(old, new) -> None:
     """Copy every leaf of ``new`` that is not the very leaf of ``old``
     into that leaf of ``old`` (dicts, tuples, NamedTuples; ``None``
     kept)."""
     if isinstance(old, dict):
         for key in old:
-            _copy_back(old[key], new[key])
+            copy_into(old[key], new[key])
     elif isinstance(old, tuple):
         for o, n in zip(old, new):
-            _copy_back(o, n)
+            copy_into(o, n)
     elif old is not None and new is not old:
         old.copy_(new)
 
@@ -163,7 +176,7 @@ class StepGraph:
     def _step(self) -> None:
         logits, new = self.lm.decode_step(self.params, self._batch(),
                                           self.caches)
-        _copy_back(self.caches, new)
+        copy_into(self.caches, new)
         self.logits.copy_(logits)
 
     def _warmup(self) -> None:
@@ -197,6 +210,90 @@ class StepGraph:
     def reset(self) -> None:
         """Zero every cache leaf in place, as ``init_caches`` makes them."""
         _map_cache(torch.Tensor.zero_, self.caches)
+
+
+def _state_leaves(params, opt_state) -> list:
+    """The tensors a train step reads and writes in place: the params,
+    the step counter and the moments."""
+    return [*tree_leaves(params), opt_state.step, *tree_leaves(opt_state.mu),
+            *tree_leaves(opt_state.nu)]
+
+
+class TrainGraph:
+    """The whole train step of ``step`` (a ``launch/steps.TrainStep``):
+    ``step.grads`` (the forward, the remat recompute, the backward and the
+    gradient accumulation), then ``step.opt.update`` with ``lr_scale``,
+    over static batch buffers shaped and typed as ``batch`` (a batch on
+    the device, as ``steps._to_device`` makes it), a static f32
+    ``lr_scale`` and static metrics.  It reads and writes ``params`` and
+    ``opt_state`` where they lie: AdamW updates params, moments and the
+    step counter in place, the counterpart of the reference's donation.
+
+    The warm-up runs the gradient pass only, so it leaves params, moments
+    and step as they were, then returns the cached blocks it used to the
+    card before the capture allocates the graph's own pool.  It sizes the
+    static metrics from the metrics it returns.  Captured on CUDA, where
+    a failed capture raises; on the CPU the warm-up and then the step run
+    directly against the same static buffers."""
+
+    def __init__(self, step, params, opt_state, batch: dict):
+        self.step, self.params, self.opt_state = step, params, opt_state
+        self.held = _state_leaves(params, opt_state)
+        self.device = dev = step.lm.device
+        self.batch = {k: torch.zeros_like(v) for k, v in batch.items()}
+        self.lr_scale = torch.ones((), dtype=F32, device=dev)
+        self.metrics = None
+        self.graph = None
+        if dev.type == "cuda":
+            _refuse_patched(step.lm)
+            self.graph = Graph(self._step, self._warmup, dev)
+        else:
+            self._warmup()
+
+    def _warmup(self) -> None:
+        metrics = self.step.grads(self.params, self.batch)[1]
+        self.metrics = {k: torch.zeros_like(v) for k, v in metrics.items()}
+        del metrics
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+
+    def _step(self) -> None:
+        grads, metrics = self.step.grads(self.params, self.batch)
+        self.step.opt.update(grads, self.opt_state, self.params,
+                             lr_scale=self.lr_scale)
+        for k, v in metrics.items():
+            self.metrics[k].copy_(v)
+
+    def run(self, params, opt_state, batch: dict, lr_scale=1.0):
+        """One step on ``batch`` (numpy arrays or tensors, as the eager
+        step takes them) at ``lr_scale`` (a float or a scalar tensor).
+        ``params`` and ``opt_state`` must hold the very tensors the graph
+        was built over; ``batch`` the keys and shapes it was built for.
+        Returns (params, opt_state, metrics): the metrics are the static
+        tensors, which the next run overwrites."""
+        if len(held := _state_leaves(params, opt_state)) != len(self.held) \
+                or any(a is not b for a, b in zip(held, self.held)):
+            raise RuntimeError(
+                "this train step's graph reads and writes the params and "
+                "moments it was captured with; another tree needs another "
+                "train step (or graphs=False)")
+        if batch.keys() != self.batch.keys() or any(
+                tuple(torch.as_tensor(v).shape) != tuple(self.batch[k].shape)
+                for k, v in batch.items()):
+            raise ValueError(
+                "this train step's graph was captured for the batch "
+                + str({k: tuple(v.shape) for k, v in self.batch.items()})
+                + "; another shape needs another train step (or "
+                "graphs=False)")
+        for k, v in batch.items():
+            self.batch[k].copy_(torch.as_tensor(v))
+        self.lr_scale.copy_(torch.as_tensor(lr_scale, dtype=F32))
+        if self.graph is None:
+            self._step()
+        else:
+            self.graph.replay()
+        return params, opt_state, self.metrics
 
 
 #: id(model) → (model, {key: graph}), as the reference's ``_JIT_MEMO``;

@@ -14,6 +14,16 @@ gradient.  It runs on ``cuda`` unless the caller passes ``device="cpu"``.
 
 ``fn`` updates params and moments in place, as the reference's jitted
 step donates them (``optim/adamw.py``).
+
+On ``cuda``, as the reference jits its step, ``fn`` captures the whole
+step (forward, remat recompute, backward, accumulation and the AdamW
+update) in one CUDA graph at its first call (``launch/graphs.TrainGraph``)
+and replays it: over the params and moments of that call, which it
+updates where they lie, and batches of that call's shapes; another tree
+or another shape raises.  ``graphs=False``, or ``device="cpu"``, runs the
+step eagerly, operation by operation from the host; ``graphs=True`` on
+the CPU runs the graph's step directly, against the same static buffers.
+``grads`` always runs eagerly.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from ..configs.base import ArchConfig
 from ..models.lm import LM
 from ..optim import AdamW
 from ..optim.adamw import tree_leaves, tree_unflatten
+from .graphs import TrainGraph
 
 F32 = torch.float32
 
@@ -33,7 +44,8 @@ F32 = torch.float32
 @dataclass
 class TrainStep:
     #: (params, opt_state, batch, lr_scale=1.0) → (params, opt_state,
-    #: metrics); params and moments are updated in place
+    #: metrics); params and moments are updated in place (on a graph, the
+    #: metrics are its static tensors, which the next call overwrites)
     fn: Callable
     #: (params, batch) → (grads, metrics): the gradient ``fn`` applies
     #: (accumulated over the micro-batches) and the metrics it returns
@@ -58,15 +70,21 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
                      remat: str = "full", use_kernels: bool = False,
                      accum_steps: int = 1,
-                     device: torch.device | str = "cuda") -> TrainStep:
+                     device: torch.device | str = "cuda",
+                     graphs: bool | None = None) -> TrainStep:
     """``accum_steps = K > 1`` splits the batch into K micro-batches along
     the batch axis (the reference's ``reshape((K, -1) + shape[1:])``),
     sums their gradients in f32 and divides by K, and applies one
     optimizer update; the metrics are the last micro-batch's, as the
-    reference's scan carry returns them.
+    reference's scan carry returns them.  On a graph the K micro-batches
+    are one graph, as the reference's ``lax.scan`` is one program.
 
-    The LM is built with ``graphs=False``: the sLSTM's CUDA graph carries
-    no gradients."""
+    ``graphs``: ``None`` (the default) runs ``fn`` on a CUDA graph on
+    ``cuda`` and eagerly on the CPU; ``True`` on a graph everywhere (its
+    direct form on the CPU); ``False`` eagerly.
+
+    The LM is built with ``graphs=False``: the sLSTM's own CUDA graph
+    carries no gradients, and its loop is captured in the train step's."""
     if use_kernels:
         raise NotImplementedError(
             "build_train_step(use_kernels=True): the hand-written kernels "
@@ -116,4 +134,16 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
                                        lr_scale=lr_scale)
         return params, opt_state, metrics
 
-    return TrainStep(fn, grads_fn, lm, opt)
+    eager = TrainStep(fn, grads_fn, lm, opt)
+    if graphs is False or (graphs is None and lm.device.type != "cuda"):
+        return eager
+    graph = None
+
+    def graph_fn(params, opt_state, batch, lr_scale=1.0):
+        nonlocal graph
+        if graph is None:
+            graph = TrainGraph(eager, params, opt_state,
+                               _to_device(batch, lm.device))
+        return graph.run(params, opt_state, batch, lr_scale)
+
+    return TrainStep(graph_fn, grads_fn, lm, opt)

@@ -20,12 +20,17 @@ and the other way round.
 Without a plan: the reference optimises one (``optimize()``) and shards
 the step under it; on one card there is nothing to shard, and applying a
 plan is ROADMAP A8, so the driver prints ``plan: skipped`` and
-``--fsdp`` has no effect.  The step runs eagerly, on the plain paths, as
-the reference's step trains without its kernels; the reference jits it
-with params and moments donated, and capturing it as a CUDA graph is
-ROADMAP A5's rest.  AdamW updates params and moments in place, the
-counterpart of that donation; ``CheckpointManager.save`` copies them to
-the host before it returns.
+``--fsdp`` has no effect.  The step runs the plain paths, as the
+reference's step trains without its kernels.  As the reference jits it
+with params and moments donated, the step on ``cuda`` is one CUDA graph
+(``launch/steps.build_train_step``), captured at the first step and
+replayed after; the graphs captured and their capture seconds are
+printed at the end.  AdamW updates params and moments in place, the
+counterpart of that donation, so the graph reads and writes the tensors
+the driver made at the start: a resume copies the checkpoint into them,
+and ``CheckpointManager.save`` copies them to the host before it
+returns.  The lr schedule's value reaches the graph through its static
+scalar at every step.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from ..configs import get_config, list_archs
 from ..data import ShardedLoader, SyntheticCorpus
 from ..distributed import CheckpointManager, StragglerMonitor
 from ..optim import AdamW, cosine_schedule
+from . import graphs
 from .steps import build_train_step
 
 
@@ -86,12 +92,12 @@ def main(argv=None) -> dict:
     latest = ckpt.latest_step()
     if latest is not None:
         start = latest
-        state = ckpt.restore(latest, {"params": params,
-                                      "opt": opt_state})
-        params, opt_state = state["params"], state["opt"]
+        held = {"params": params, "opt": opt_state}
+        graphs.copy_into(held, ckpt.restore(latest, held))
         restored = True
         print(f"[train] resumed from step {latest}")
 
+    before = graphs.stats()
     losses = []
     for step in range(start, args.steps):
         if step == args.simulate_preemption_at and not restored:
@@ -111,6 +117,9 @@ def main(argv=None) -> dict:
         if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
             ckpt.save(step + 1, {"params": params, "opt": opt_state})
     ckpt.wait()
+    after = graphs.stats()
+    print(f"[train] graphs: {after['graphs'] - before['graphs']} captured "
+          f"in {after['capture_s'] - before['capture_s']:.2f} s")
     return {"final_loss": losses[-1] if losses else None,
             "losses": losses, "resumed_from": start}
 

@@ -171,12 +171,20 @@ def init_slstm(pb: ParamBuilder, path: str, cfg: ArchConfig,
                   ("d_ff", "d_model"), stack=stack)
 
 
-def _slstm_step(p: dict, state: SLSTMState, x_t: torch.Tensor
-                ) -> tuple[SLSTMState, torch.Tensor]:
-    """One exponential-gated sLSTM step; x_t (B,D).  The gate products
+def _gate_weights(p: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """``w_gates`` and ``r_gates`` cast to f32, once per sequence: the
+    reference casts them at every step, which computes the same values,
+    but autograd would keep each step's f32 copies (2 x 9.44 MB a step at
+    xlstm-125m's width) and sum each step's gradient in bf16."""
+    return p["w_gates"].to(F32), p["r_gates"].to(F32)
+
+
+def _slstm_step(w: torch.Tensor, r: torch.Tensor, state: SLSTMState,
+                x_t: torch.Tensor) -> tuple[SLSTMState, torch.Tensor]:
+    """One exponential-gated sLSTM step; x_t (B,D), the gate weights
+    ``w``, ``r`` (D,4,D) in f32 (``_gate_weights``).  The gate products
     run in f32, as in the reference."""
-    pre = (_proj(x_t.to(F32), p["w_gates"].to(F32))
-           + _proj(state.h, p["r_gates"].to(F32)))         # (B,4,D)
+    pre = _proj(x_t.to(F32), w) + _proj(state.h, r)       # (B,4,D)
     i_p, f_p, z_p, o_p = (pre[:, 0], pre[:, 1], pre[:, 2], pre[:, 3])
     logf = F.logsigmoid(f_p)
     m_new = torch.maximum(logf + state.m, i_p)
@@ -200,10 +208,12 @@ def _fresh_slstm(B: int, D: int, device) -> SLSTMState:
 def _slstm_scan(p: dict, x: torch.Tensor, carry: SLSTMState
                 ) -> tuple[torch.Tensor, SLSTMState]:
     """The recurrence over x (B,S,D) step by step: the reference's
-    ``lax.scan`` over time as a loop.  Returns (y in x's dtype, carry)."""
+    ``lax.scan`` over time as a loop, the gate weights cast once.
+    Returns (y in x's dtype, carry)."""
+    w, r = _gate_weights(p)
     hs = []
     for t in range(x.shape[1]):
-        carry, h = _slstm_step(p, carry, x[:, t])
+        carry, h = _slstm_step(w, r, carry, x[:, t])
         hs.append(h)
     return torch.stack(hs, dim=1).to(x.dtype), carry
 
@@ -226,7 +236,8 @@ class _ScanGraph:
             self.y = _slstm_scan(p, self.x, _fresh_slstm(B, D, x.device))[0]
 
         def warmup():
-            _slstm_step(p, _fresh_slstm(B, D, x.device), self.x[:, 0])
+            _slstm_step(*_gate_weights(p), _fresh_slstm(B, D, x.device),
+                        self.x[:, 0])
         self.graph = Graph(body, warmup, x.device)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,8 +8,11 @@ or bf16 as deepseek-v3's config selects).
 The reference's jitted step donates params and moments.  Here ``update``
 likewise writes the new params and moments into the tensors it is given,
 under ``torch.no_grad()``, and returns them: a caller that needs the old
-values clones them first.  ``step``, the gradient norm, the clip scale
-and ``lr_scale`` stay on the device, so an update makes no host sync.
+values clones them first.  The step counter advances in place too, so
+the state returned is the state given, and a CUDA graph of the update
+(``launch/graphs.TrainGraph``) reads and advances the same counter at
+every replay.  ``step``, the gradient norm, the clip scale and
+``lr_scale`` stay on the device, so an update makes no host sync.
 The elementwise update runs over slices of each leaf along its first
 axis (``_row_slices``), so its f32 temporaries stay near a GB whatever
 the leaf's size (musicgen-large's stacked ``ffn/w_in`` is 1.61 B
@@ -98,10 +101,10 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params,
                lr_scale: torch.Tensor | float = 1.0):
-        """Returns (params, state), both updated in place (see the module
-        docstring).  Update math in f32; params keep their storage
-        dtype."""
-        step = state.step + 1
+        """Returns (params, state), the very objects given, updated in
+        place (see the module docstring).  Update math in f32; params keep
+        their storage dtype."""
+        step = state.step.add_(1)
         gs = tree_leaves(grads)
         # global-norm clip
         if self.grad_clip:
@@ -128,7 +131,7 @@ class AdamW:
                 p.copy_(p.to(F32) - lr * delta)
                 m.copy_(m32)
                 v.copy_(v32)
-        return params, AdamWState(step, state.mu, state.nu)
+        return params, state
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int

@@ -794,6 +794,79 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
         assert bool(((a.float() - b.float()).abs() <= bound).all())
 
 
+def _train_state(step, seed=0):
+    params, _ = step.lm.init(seed)
+    return params, step.opt.init(params)
+
+
+def _state_leaves(params, st):
+    from repro_torch.optim.adamw import tree_leaves
+    return [*tree_leaves(params), st.step, *tree_leaves(st.mu),
+            *tree_leaves(st.nu)]
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v3-671b"])
+def test_train_graph_replay_matches_eager_step(cuda, arch):
+    """The train step captured in one CUDA graph and replayed, 3 steps
+    with a cosine lr, against the eager step from the same params: every
+    metric of every step and the final params, moments and step counter
+    bit for bit, and no kernel launched.  Routing is not pinned, so the
+    MoE dispatch (its index writes, ``torch.topk``) and the Mamba or MLA
+    and MTP backward run under the capture."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch import graphs
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import cosine_schedule
+    cfg = get_config(arch, smoke=True)
+    lr_fn = cosine_schedule(1.0, warmup=1, total=3)
+    counted = (trms.rmsnorm, tfa.flash_attention, tml.mlstm_chunk,
+               tssd.ssd_scan, tgmm.moe_gmm)
+    out = {}
+    for g in (False, True):
+        step = build_train_step(cfg, device=cuda, graphs=g)
+        params, st = _train_state(step)
+        before = [f.launches for f in counted]
+        n0 = graphs.stats()["graphs"]
+        metrics = []
+        for i in range(3):
+            batch = SyntheticCorpus(cfg.vocab, seed=0).batch(i, 0, 2, 32)
+            params, st, m = step.fn(params, st, batch, lr_scale=lr_fn(i))
+            metrics.append({k: v.item() for k, v in m.items()})
+        assert graphs.stats()["graphs"] - n0 == int(g)
+        assert [f.launches for f in counted] == before
+        out[g] = (metrics, [t.cpu() for t in _state_leaves(params, st)])
+    assert out[True][0] == out[False][0]
+    for a, b in zip(out[True][1], out[False][1]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_train_graph_refuses_replaced_routers_and_other_trees(cuda,
+                                                              monkeypatch):
+    """A train step's graph of an MoE model is not captured while
+    ``router_topk`` is replaced; once captured, it refuses a param tree
+    or a batch shape other than its own.  Nothing falls back to the eager
+    step."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import moe
+    cfg = get_config("jamba-v0.1-52b", smoke=True)
+    batch = SyntheticCorpus(cfg.vocab, seed=0).batch(0, 0, 2, 16)
+    step = build_train_step(cfg, device=cuda)
+    params, st = _train_state(step)
+    with monkeypatch.context() as m:
+        m.setattr(moe, "router_topk", lambda *a: moe.ROUTER_TOPK(*a))
+        with pytest.raises(RuntimeError, match="router_topk is replaced"):
+            step.fn(params, st, batch)
+    step = build_train_step(cfg, device=cuda)
+    step.fn(params, st, batch)
+    other, ost = _train_state(step, seed=1)
+    with pytest.raises(RuntimeError, match="another tree"):
+        step.fn(other, ost, batch)
+    with pytest.raises(ValueError, match="another shape"):
+        step.fn(params, st, SyntheticCorpus(cfg.vocab, seed=0).batch(
+            0, 0, 2, 32))
+
+
 def test_kernel_wrappers_refuse_gradients_on_card(cuda):
     """Each kernel wrapper raises on a CUDA input that requires grad (its
     output would carry none), before it launches anything."""

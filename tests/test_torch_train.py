@@ -182,15 +182,18 @@ def test_adamw_update_matches_reference(moment_dtype):
 
 def test_adamw_updates_in_place():
     """The counterpart of the reference's donation: the tensors passed in
-    are the ones returned, written with the new values."""
+    are the ones returned, written with the new values, the step counter
+    too (a CUDA graph of the update reads and advances that one
+    tensor)."""
     p = {"w": torch.ones(4, 4, dtype=torch.bfloat16)}
     opt = AdamW(lr=0.1)
     st = opt.init(p)
+    counter = st.step
     before = p["w"].clone()
     new_p, new_st = opt.update({"w": torch.ones(4, 4)}, st, p)
     assert new_p["w"] is p["w"] and new_st.mu["w"] is st.mu["w"]
     assert not torch.equal(p["w"], before)
-    assert int(new_st.step) == 1 and int(st.step) == 0
+    assert new_st is st and new_st.step is counter and int(st.step) == 1
 
 
 def _sliced_updates(monkeypatch, moment_dtype):
