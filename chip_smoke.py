@@ -201,7 +201,20 @@ d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
    remat full, AdamW lr 1e-3 with bf16 moments, eager and on the graph
    as 12: the losses and the ``mtp`` metric finite, the moments bf16, ms
    a step, peak memory, capture seconds, the graph bit-equal, no
-   launch.  Each phase's seconds on ``[deepseek]`` lines.
+   launch.  Each phase's seconds on ``[deepseek]`` lines;
+18. compiler: the port's HIDA compiler (``repro_torch.core``) on the
+   host, in front of the paths the card runs: for each of the ten archs
+   at ``train_4k`` on ``SINGLE_POD`` (``training=True``), the pre-DSE
+   schedule (construct, fuse, lower, multi-producer elimination,
+   balance) and ``optimize``'s plan must equal the goldens of
+   ``tests/goldens/pre_dse`` (read as plain JSON files), with no
+   degradation; each arch's compile seconds, with the host's CPU model
+   and the card's name and power limit, on ``[compiler]`` lines; then
+   the serve driver's ``fetch_plan`` for smollm-135m at phase 5's
+   serving shape into a fresh temporary plan cache: cold, then a hit of
+   the same plan, both times printed.  Phase 13's driver compiles its
+   plan the same way (``[train] plan:``) on a mesh of one data and one
+   model slot, where every constraint is the identity.
 
 Each path's launch counts are set to 0 just before it and read just
 after; the kernels' ``launches`` are their sums over phases 4-10 and
@@ -220,6 +233,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
+import platform
 import shutil
 import subprocess
 import sys
@@ -235,7 +250,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SHAPES, get_config, list_archs  # noqa: E402
+from repro_torch.core import (SINGLE_POD, balance_paths,  # noqa: E402
+                              build_lm_graph, construct_functional,
+                              eliminate_multi_producers, fuse_tasks,
+                              lower_to_structural, optimize)
+from repro_torch.core.ir import reset_fresh_names  # noqa: E402
 from repro_torch.data import ShardedLoader, SyntheticCorpus  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -258,7 +278,7 @@ from repro_torch.launch import scheduler as sched  # noqa: E402
 from repro_torch.launch.scheduler import (ContinuousBatcher,  # noqa: E402
                                           Request, decode_offline,
                                           prefill_bucket, run_static)
-from repro_torch.launch.serve import make_trace  # noqa: E402
+from repro_torch.launch.serve import fetch_plan, make_trace  # noqa: E402
 from repro_torch.launch.steps import build_train_step  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -348,6 +368,10 @@ DS_ORACLE_S = 8
 #: deepseek-v3's train steps: its 3 dense layers and the MTP head (4.81 B
 #: params; with gradients and bf16 moments ~38.5 GB), B=2, S=1024
 DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_S, DS_TRAIN_STEPS = 3, 2, 1024, 3
+#: the compiler's goldens (phase 18): per arch the pre-DSE schedule and
+#: the plan at this shape on ``SINGLE_POD``
+GOLDEN_DIR = ROOT / "tests" / "goldens" / "pre_dse"
+GOLDEN_SHAPE = "train_4k"
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1430,6 +1454,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_deepseek_train()
     print(f"[deepseek] phase 17 train took {time.perf_counter() - t0:.1f} s")
+    phase_compiler(device)
 
     main_path = {k: sum(p[k] for p in paths) for k in COUNTED}
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -2000,12 +2025,16 @@ def driver_run(tag: str, argv: list, eager: bool = False) -> dict:
         out = train_driver.main(argv)
         t1 = time.perf_counter()
     after = graphs.stats()
+    plan = out.pop("plan")
+    if plan is None or plan.mesh_spec.axes != (("data", 1), ("model", 1)):
+        raise AssertionError(f"driver run {tag}: plan {plan}")
     stamps = CLOCKS[0].stamps
     losses = out["losses"]
     if len(stamps) < 2 or not all(np.isfinite(losses)):
         raise AssertionError(f"driver run {tag}: losses {losses}")
     gaps = np.diff(stamps) * 1e3
-    out.update(wall_s=t1 - t0, gap_ms=gaps.tolist(),
+    out.update(plan_rules={k: list(v) for k, v in plan.rules.items()},
+               wall_s=t1 - t0, gap_ms=gaps.tolist(),
                ms_per_step=float(np.mean(gaps)), tail_s=t1 - stamps[-1],
                graphs=after["graphs"] - before["graphs"],
                capture_s=after["capture_s"] - before["capture_s"])
@@ -2359,6 +2388,94 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def host_cpu() -> str:
+    """The host CPU's model name, as ``lscpu`` or Linux's cpuinfo report
+    it, with the machine's architecture."""
+    fields = ("Model name:", "model name", "Model\t", "Hardware")
+    try:
+        text = subprocess.run(["lscpu"], capture_output=True, text=True,
+                              timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        text = ""
+    try:
+        text += Path("/proc/cpuinfo").read_text()
+    except OSError:
+        pass
+    for line in text.splitlines():
+        if line.startswith(fields) and ":" in line:
+            return f"{line.split(':', 1)[1].strip()}, {platform.machine()}"
+    return f"model not reported, {platform.machine()}"
+
+
+def pre_dse_schedule(arch: str):
+    """construct → fuse → lower → multi-producer → balance at the goldens'
+    shape, from a reset name counter."""
+    reset_fresh_names()
+    g = build_lm_graph(get_config(arch), SHAPES[GOLDEN_SHAPE])
+    construct_functional(g)
+    fuse_tasks(g)
+    sched = lower_to_structural(g)
+    eliminate_multi_producers(sched)
+    balance_paths(sched)
+    return sched
+
+
+def phase_compiler(device: dict) -> dict:
+    """18. The port's compiler against the goldens on all ten archs, then
+    the serve driver's plan fetch, cold and hit."""
+    t0 = time.perf_counter()
+    rec = {}
+    for arch in list_archs():
+        golden = json.loads((GOLDEN_DIR / f"{arch}.json").read_text())
+        if (golden["shape"], golden["mesh"]) != (GOLDEN_SHAPE, "SINGLE_POD"):
+            raise AssertionError(f"{arch}: golden of {golden['shape']} on "
+                                 f"{golden['mesh']}")
+        sched = pre_dse_schedule(arch)
+        if json.loads(json.dumps(sched.to_dict())) != golden["schedule"]:
+            raise AssertionError(f"{arch}: the pre-DSE schedule differs "
+                                 "from its golden")
+        reset_fresh_names()
+        t1 = time.perf_counter()
+        g = build_lm_graph(get_config(arch), SHAPES[GOLDEN_SHAPE])
+        osched, plan, rep = optimize(g, SINGLE_POD, training=True)
+        secs = time.perf_counter() - t1
+        if json.loads(plan.to_json()) != golden["plan"]:
+            raise AssertionError(f"{arch}: the plan differs from its golden")
+        if rep.degradations or not rep.verify.ok:
+            raise AssertionError(f"{arch}: degraded {rep.degradations}, "
+                                 f"verify {rep.verify.summary()}")
+        rec[arch] = {"compile_s": secs, "nodes": len(osched.nodes),
+                     "regions": rep.regions,
+                     "evaluated": rep.parallelize.evaluated}
+        print(f"[compiler] {arch}: pre-DSE schedule and plan equal the "
+              f"golden; build_lm_graph + optimize {secs:.3f} s "
+              f"({len(osched.nodes)} nodes, {rep.regions} regions, "
+              f"{rep.parallelize.evaluated} proposals evaluated)")
+    total = sum(r["compile_s"] for r in rec.values())
+    print(f"[compiler] {len(rec)} plans equal their goldens; compile "
+          f"{total:.3f} s in all on the host ({host_cpu()}, "
+          f"{os.cpu_count()} logical CPUs), beside {device['smi']}")
+    d = Path(tempfile.mkdtemp(prefix="repro_torch_plans_"))
+    try:
+        s_max = prefill_bucket(PROMPT_RANGE[1], 16) + GEN_RANGE[1]
+        fetched = [fetch_plan(get_config(ARCH), slots=SLOTS, s_max=s_max,
+                              cache_root=d) for _ in range(2)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    (cold, ci), (hit, hi) = fetched
+    if (ci["source"], hi["source"]) != ("cold", "hit") or \
+            cold.to_json() != hit.to_json():
+        raise AssertionError(f"fetch_plan: {ci['source']} then "
+                             f"{hi['source']}")
+    rec["fetch_plan"] = {"bucket": ci["bucket"], "cold_ms": ci["fetch_ms"],
+                         "hit_ms": hi["fetch_ms"]}
+    print(f"[compiler] fetch_plan {ARCH} (bucket {ci['bucket']}): cold "
+          f"{ci['fetch_ms']:.1f} ms, then a hit of the same plan in "
+          f"{hi['fetch_ms']:.2f} ms")
+    print(f"[compiler] phase 18 took {time.perf_counter() - t0:.1f} s")
+    return rec
 
 
 if __name__ == "__main__":

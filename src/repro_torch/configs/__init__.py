@@ -2,7 +2,8 @@
 
 The same ten architectures as ``repro.configs``, full and smoke.  The
 synthetic ``synth_*`` graphs are not registered here: they come from the
-compiler (``repro.core.generate``), which has not been ported yet.
+compiler's graph generator (``repro.core.generate``), which the port's
+compiler (``repro_torch.core``) does not include yet.
 """
 from __future__ import annotations
 

@@ -9,9 +9,9 @@ needs and slices out its new shard.  Because the data loader is keyed by
 re-partitions consistently too — no sample is lost or duplicated.
 
 For one process the "hosts" are simulated shard files; the stitching
-logic is identical to the multi-host case.  ``mesh_for_hosts`` and
-``replan_for_topology`` need the mesh and the plan cache, which the port
-does not have yet (ROADMAP A8, A14).
+logic is identical to the multi-host case.  ``mesh_for_hosts`` needs the
+device mesh (ROADMAP A8), and ``replan_for_topology`` is not ported yet
+(ROADMAP A14's rest).
 """
 from __future__ import annotations
 

@@ -19,9 +19,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch llama-3.2-vision-11b --smoke --device cpu
 
-Counterpart of ``repro.launch.serve`` without the sharding plan: on one
-card ``constrain`` is a no-op, and fetching and applying a plan wait for
-ROADMAP A8/A14, so the driver prints ``plan: skipped``.  The model runs
+Counterpart of ``repro.launch.serve``.  As the reference does, the driver
+first fetches the plan of its serving shape (:func:`fetch_plan`): the
+shape is quantized onto a bucket and looked up in the persistent plan
+cache (``--plan-cache``, default ``$REPRO_PLAN_CACHE``; unset, nothing
+persists); a miss runs the port's HIDA compiler (``repro_torch.core``),
+warm-started from the nearest cached plan of the same config where there
+is one.  The cache's files are the reference's, so a plan that either
+package cached is a hit for the other.  The plan is linted
+(``analyze_plan``) and the LM built under it; on one card its
+constraints are the identity (placing tensors on a device mesh is
+ROADMAP A8).  ``--no-plan`` skips the fetch.  The model runs
 with ``use_kernels=True``: the RMSNorm kernel at every norm site of
 every decode step, and the grouped-matmul kernel in every MoE FFN.
 Prompts are prefilled as decode steps, so attention reads the KV cache
@@ -53,14 +61,41 @@ deepseek-v3 at 5.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 
 from ..configs import get_config, list_archs
+from ..configs.base import ShapeSpec
+from ..core import (SINGLE_POD, MeshSpec, PlanCache, PlanKey, analyze_plan,
+                    build_lm_graph, fetch_or_optimize, shape_bucket)
 from ..models.lm import LM
 from . import graphs
 from .scheduler import ContinuousBatcher, Request, prefill_bucket, run_static
+
+
+def fetch_plan(cfg, *, slots: int, s_max: int,
+               cache_root: str | os.PathLike | None,
+               mesh: MeshSpec = SINGLE_POD,
+               cache: PlanCache | None = None,
+               optimize_kwargs: dict | None = None):
+    """Serving-side compile: cache hit → warm re-DSE → cold DSE.
+
+    Returns ``(plan, info)`` where ``info`` has the fetch ``source``
+    (``hit``/``warm``/``cold``), wall ``fetch_ms``, the bucket, and the
+    ``OptimizeReport`` when a DSE ran."""
+    cache = cache if cache is not None else PlanCache(cache_root)
+    bucket = shape_bucket("decode", s_max, slots)
+    key = PlanKey.make(cfg, mesh, bucket)
+    shape = ShapeSpec(bucket, s_max, slots, "decode")
+    t0 = time.perf_counter()
+    plan, source, report = fetch_or_optimize(
+        cache, key, mesh, lambda: build_lm_graph(cfg, shape),
+        optimize_kwargs=optimize_kwargs)
+    return plan, {"source": source, "fetch_ms": (time.perf_counter() - t0)
+                  * 1e3, "bucket": bucket, "report": report,
+                  "cache_stats": dict(cache.stats)}
 
 
 def make_trace(cfg, n_requests: int, *, seed: int,
@@ -118,6 +153,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--warmup", type=int, default=0,
                     help="un-timed passes over the trace first, so the "
                     "reported numbers are steady-state")
+    ap.add_argument("--plan-cache", default=os.environ.get(
+        "REPRO_PLAN_CACHE"), help="plan cache root dir "
+        "(default: $REPRO_PLAN_CACHE; unset = no persistence)")
+    ap.add_argument("--no-plan", action="store_true",
+                    help="skip the DSE/plan fetch entirely")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
     args = ap.parse_args(argv)
@@ -127,8 +167,23 @@ def main(argv=None) -> dict:
     g_lo, g_hi = args.gen_range
     s_max = prefill_bucket(pl_hi, 16) + g_hi
 
-    print("[serve] plan: skipped (one card: constrain is a no-op)")
-    lm = LM(cfg, use_kernels=True, device=args.device)
+    plan, plan_info = (None, {"source": "skipped", "fetch_ms": 0.0}) \
+        if args.no_plan else fetch_plan(
+            cfg, slots=args.slots, s_max=s_max,
+            cache_root=args.plan_cache)
+    if plan is None:
+        print("[serve] plan: skipped (--no-plan)")
+    else:
+        print(f"[serve] plan: {plan_info['source']} in "
+              f"{plan_info['fetch_ms']:.1f} ms "
+              f"(bucket {plan_info['bucket']})")
+        # a cache hit skips the DSE and its exit analysis: lint the plan
+        # here, informational as in the reference
+        lint = analyze_plan(plan, SINGLE_POD)
+        plan_info["lint"] = {"ok": lint.ok,
+                             "issues": [str(i) for i in lint.issues]}
+        print(f"[serve] lint: {lint.summary()}")
+    lm = LM(cfg, use_kernels=True, device=args.device, plan=plan)
     params, _ = lm.init(args.seed)
     trace = make_trace(cfg, args.requests, seed=args.seed,
                        prompt_len_range=(pl_lo, pl_hi),
@@ -138,7 +193,8 @@ def main(argv=None) -> dict:
     before = graphs.stats()
     is_moe = any(ffn == "moe" for _, ffn in cfg.layer_kinds())
     metrics: dict = {"arch": args.arch, "device": str(lm.device),
-                     "plan": {"source": "skipped"}}
+                     "plan": {k: v for k, v in plan_info.items()
+                              if k != "report"}}
     if is_moe:
         print(f"[serve] {args.arch} has MoE layers: static path only "
               "(expert capacity couples batch rows)")

@@ -1,7 +1,8 @@
 """The train step: gradients of ``LM.loss_fn`` by autograd, then AdamW.
 
 Counterpart of ``repro.launch.steps.build_train_step`` without the
-shardings (applying a plan is ROADMAP A8).  The step runs the plain
+shardings: the LM takes the plan, whose constraints are the identity on
+one card (placing tensors on a mesh is ROADMAP A8).  The step runs the plain
 PyTorch paths, as the reference trains without its kernels: none of the
 hand-written kernels has a backward pass, and their wrappers refuse a
 gradient.  It runs on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -71,7 +72,8 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
                      remat: str = "full", use_kernels: bool = False,
                      accum_steps: int = 1,
                      device: torch.device | str = "cuda",
-                     graphs: bool | None = None) -> TrainStep:
+                     graphs: bool | None = None,
+                     plan=None) -> TrainStep:
     """``accum_steps = K > 1`` splits the batch into K micro-batches along
     the batch axis (the reference's ``reshape((K, -1) + shape[1:])``),
     sums their gradients in f32 and divides by K, and applies one
@@ -84,7 +86,9 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
     direct form on the CPU); ``False`` eagerly.
 
     The LM is built with ``graphs=False``: the sLSTM's own CUDA graph
-    carries no gradients, and its loop is captured in the train step's."""
+    carries no gradients, and its loop is captured in the train step's.
+    ``plan`` is the ``ShardingPlan`` the LM constrains under (``None``:
+    none)."""
     if use_kernels:
         raise NotImplementedError(
             "build_train_step(use_kernels=True): the hand-written kernels "
@@ -92,7 +96,7 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
             "step runs the plain paths, as the reference's does")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    lm = LM(cfg, device=device, remat=remat, graphs=False)
+    lm = LM(cfg, device=device, remat=remat, graphs=False, plan=plan)
     opt = opt or AdamW(moment_dtype=cfg.opt_moment_dtype)
 
     def loss_grads(params, leaves, batch):

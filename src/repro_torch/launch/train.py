@@ -17,11 +17,15 @@ Checkpoints are in the reference's format (``distributed/checkpoint.py``),
 so this driver resumes a run that ``repro.launch.train`` checkpointed,
 and the other way round.
 
-Without a plan: the reference optimises one (``optimize()``) and shards
-the step under it; on one card there is nothing to shard, and applying a
-plan is ROADMAP A8, so the driver prints ``plan: skipped`` and
-``--fsdp`` has no effect.  The step runs the plain paths, as the
-reference's step trains without its kernels.  As the reference jits it
+As the reference does, the driver first builds the dataflow graph of the
+run's shape and runs the HIDA compiler on it (``repro_torch.core``:
+``build_lm_graph``, then ``optimize`` with ``--fsdp``) for a mesh of one
+data and one model slot, the reference's mesh on one device; it prints
+the plan's strategy, rules and compile seconds on a ``[train] plan:``
+line and builds the LM under the plan.  On one card every constraint of
+the plan is the identity (placing tensors on a device mesh is ROADMAP
+A8), so the step computes what it computes without one.  The step runs
+the plain paths, as the reference's step trains without its kernels.  As the reference jits it
 with params and moments donated, the step on ``cuda`` is one CUDA graph
 (``launch/steps.build_train_step``), captured at the first step and
 replayed after; the graphs captured and their capture seconds are
@@ -38,6 +42,8 @@ import argparse
 import time
 
 from ..configs import get_config, list_archs
+from ..configs.base import ShapeSpec
+from ..core import MeshSpec, build_lm_graph, optimize
 from ..data import ShardedLoader, SyntheticCorpus
 from ..distributed import CheckpointManager, StragglerMonitor
 from ..optim import AdamW, cosine_schedule
@@ -47,11 +53,21 @@ from .steps import build_train_step
 
 def build(args):
     cfg = get_config(args.arch, smoke=args.smoke)
-    print("[train] plan: skipped (one card: no sharding until ROADMAP A8)")
+    shape = ShapeSpec("cli", args.seq, args.batch, "train")
+    # one card: the reference sizes the data axis to its device count
+    mspec = MeshSpec((("data", 1), ("model", 1)))
+    t0 = time.perf_counter()
+    g = build_lm_graph(cfg, shape)
+    _sched, plan, report = optimize(g, mspec, fsdp=args.fsdp)
+    print(f"[train] plan: {plan.meta.get('strategy', 'hida')}, rules "
+          f"{dict(plan.rules)}, fsdp {plan.fsdp}, "
+          f"{len(report.degradations)} degradations, compiled in "
+          f"{time.perf_counter() - t0:.3f} s")
     opt = AdamW(lr=args.lr, moment_dtype=cfg.opt_moment_dtype)
     lr_fn = cosine_schedule(1.0, warmup=max(args.steps // 20, 1),
                             total=args.steps)
-    step = build_train_step(cfg, opt, remat=args.remat, device=args.device)
+    step = build_train_step(cfg, opt, remat=args.remat, device=args.device,
+                            plan=plan)
 
     def train_step(params, opt_state, batch, i):
         return step.fn(params, opt_state, batch, lr_scale=lr_fn(i))
@@ -69,8 +85,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--remat", default="none")
     ap.add_argument("--fsdp", action="store_true",
-                    help="accepted for the reference's command line; no "
-                    "effect until the port applies plans (ROADMAP A8)")
+                    help="FSDP weight sharding in the compiler's plan")
     ap.add_argument("--ckpt-dir", default="/tmp/repro_torch_ckpt")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--simulate-preemption-at", type=int, default=-1)
@@ -103,7 +118,8 @@ def main(argv=None) -> dict:
         if step == args.simulate_preemption_at and not restored:
             print(f"[train] simulated preemption at step {step}")
             ckpt.wait()
-            return {"preempted_at": step, "losses": losses}
+            return {"preempted_at": step, "losses": losses,
+                    "plan": lm.plan}
         t0 = time.perf_counter()
         batch = loader.batch_at(step)
         params, opt_state, metrics = step_fn(params, opt_state, batch, step)
@@ -121,7 +137,7 @@ def main(argv=None) -> dict:
     print(f"[train] graphs: {after['graphs'] - before['graphs']} captured "
           f"in {after['capture_s'] - before['capture_s']:.2f} s")
     return {"final_loss": losses[-1] if losses else None,
-            "losses": losses, "resumed_from": start}
+            "losses": losses, "resumed_from": start, "plan": lm.plan}
 
 
 if __name__ == "__main__":

@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 from torch.utils.checkpoint import (checkpoint,
@@ -140,6 +140,10 @@ class LM:
     #: records the layer (``_records_grad``); prefill, decode and the CUDA
     #: graphs run with params that require no grad, and never reach it
     remat: str = "full"
+    #: the ``ShardingPlan`` of ``repro_torch.core.optimize`` (or ``None``);
+    #: its ``constrain`` runs at every constraint site, the identity on
+    #: one card
+    plan: Any = None
 
     def __post_init__(self):
         if self.remat not in REMATS:
@@ -150,9 +154,12 @@ class LM:
     # -- helpers ---------------------------------------------------------------
     @property
     def constrain(self) -> Callable:
-        """No plan on one card: the no-op the reference uses for
-        ``plan=None``.  Applying a plan is ROADMAP A8."""
-        return _noop_constrain
+        """The plan's constraint, or the no-op without one, as in the
+        reference.  With no device mesh the plan's is the identity too;
+        placing tensors on a mesh is ROADMAP A8."""
+        if self.plan is None:
+            return _noop_constrain
+        return self.plan.constrain
 
     def _groups(self):
         return self.cfg.layer_groups()

@@ -171,6 +171,46 @@ def test_cuda_without_a_card_raises(monkeypatch):
         LM(get_config("smollm-135m", smoke=True))
 
 
+@pytest.mark.parametrize("arch", ["smollm-135m", "jamba-v0.1-52b",
+                                  "deepseek-v3-671b"])
+def test_plan_is_the_identity_on_one_card(arch):
+    """``LM(plan=...)`` under the port's own plan (``SINGLE_POD``, whose
+    rules shard batch and model dims) computes ``LM(plan=None)``'s bits:
+    logits, loss and metrics, every gradient, prefill and a decode step.
+    Every constraint site goes through the plan's ``constrain``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import SINGLE_POD, build_lm_graph, optimize
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config(arch, smoke=True)
+    _, plan, rep = optimize(build_lm_graph(cfg, ShapeSpec("t", 16, B,
+                                                          "train")),
+                            SINGLE_POD)
+    assert plan.rules and not rep.degradations
+    calls = []
+    real = plan.constrain
+    plan.constrain = lambda x, dims, site=None: (calls.append(site),
+                                                 real(x, dims, site))[1]
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, 16)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    out = []
+    for p in (None, plan):
+        step = build_train_step(cfg, device="cpu", plan=p)
+        params, _ = step.lm.init(0)
+        grads, metrics = step.grads(params, batch)
+        lm = step.lm
+        logits, caches = lm.decode_step(params, {
+            "tokens": toks[:, :1], "pos": torch.tensor(0, dtype=torch.int32)},
+            lm.init_caches(B, 16))
+        out.append([lm.logits_fn(params, batch), lm.prefill(params, batch),
+                    logits, *metrics.values(), *tree_leaves(grads)])
+    assert calls and len(out[0]) == len(out[1])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
 # -- jamba (Mamba + MoE + GQA) ------------------------------------------------
 
 JB, JS = 2, 32          # JS a multiple of the smoke Mamba chunk (16)

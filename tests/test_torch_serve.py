@@ -234,11 +234,12 @@ def test_static_baseline_counts_useful_tokens(served):
     assert 0.0 < rep.occupancy <= 1.0
 
 
-def test_serve_main_on_cpu():
+def test_serve_main_on_cpu(monkeypatch):
+    monkeypatch.delenv("REPRO_PLAN_CACHE", raising=False)
     m = serve_main(["--arch", "smollm-135m", "--smoke", "--slots", "2",
                     "--requests", "4", "--prompt-len-range", "3", "10",
                     "--gen-range", "3", "6", "--static", "--device", "cpu"])
-    assert m["plan"]["source"] == "skipped" and m["device"] == "cpu"
+    assert m["plan"]["source"] == "cold" and m["device"] == "cpu"
     assert m["continuous"]["requests"] == 4
     assert m["continuous"]["tok_per_s"] > 0 and m["static"]["tok_per_s"] > 0
 
@@ -250,6 +251,60 @@ def test_serve_main_xlstm_on_cpu():
     assert m["arch"] == "xlstm-125m" and m["device"] == "cpu"
     assert m["continuous"]["requests"] == 3
     assert m["continuous"]["generated"] >= 9
+
+
+SERVE_SMOKE = ["--arch", "smollm-135m", "--smoke", "--slots", "2",
+               "--requests", "2", "--prompt-len-range", "3", "10",
+               "--gen-range", "3", "4", "--device", "cpu"]
+
+
+def test_serve_main_fetches_cold_then_hit_and_lints(tmp_path, capsys):
+    """The driver fetches its plan through the plan cache as the
+    reference's does: cold into an empty cache, then a hit; the lint
+    line prints, and ``--no-plan`` skips the fetch."""
+    cache = ["--plan-cache", str(tmp_path)]
+    first = serve_main(SERVE_SMOKE + cache)
+    second = serve_main(SERVE_SMOKE + cache)
+    skipped = serve_main(SERVE_SMOKE + ["--no-plan"])
+    out = capsys.readouterr().out.splitlines()
+    assert first["plan"]["source"] == "cold"
+    assert second["plan"]["source"] == "hit"
+    assert first["plan"]["bucket"] == second["plan"]["bucket"] \
+        == "decode_b2_s128"
+    assert second["plan"]["lint"]["ok"] and second["plan"]["cache_stats"][
+        "hits_disk"] == 1
+    assert skipped["plan"] == {"source": "skipped", "fetch_ms": 0.0}
+    plan_lines = [ln for ln in out if ln.startswith("[serve] plan:")]
+    assert [ln.split()[2] for ln in plan_lines] == ["cold", "hit",
+                                                    "skipped"]
+    assert sum(ln.startswith("[serve] lint: analyze: clean")
+               for ln in out) == 2
+
+
+def test_fetch_plan_equals_reference(tmp_path):
+    """``fetch_plan`` of both packages, each into its own cache: the same
+    bucket, the same source, cold then hit, and the same plan; then the
+    reference's cache serves the port a hit."""
+    from repro.core.ir import reset_fresh_names as jreset
+    from repro.launch.serve import fetch_plan as jfetch
+    from repro_torch.core.ir import reset_fresh_names
+    from repro_torch.launch.serve import fetch_plan
+
+    got, want = [], []
+    for _ in range(2):
+        reset_fresh_names()
+        got.append(fetch_plan(get_config("xlstm-125m", smoke=True), slots=4,
+                              s_max=96, cache_root=tmp_path / "t"))
+        jreset()
+        want.append(jfetch(jget("xlstm-125m", smoke=True), slots=4,
+                           s_max=96, cache_root=tmp_path / "r"))
+    for (p, i), (jp, ji) in zip(got, want):
+        assert (i["source"], i["bucket"]) == (ji["source"], ji["bucket"])
+        assert p.to_json() == jp.to_json()
+    assert [i["source"] for _, i in got] == ["cold", "hit"]
+    p, i = fetch_plan(get_config("xlstm-125m", smoke=True), slots=4,
+                      s_max=96, cache_root=tmp_path / "r")
+    assert i["source"] == "hit" and p.to_json() == want[0][0].to_json()
 
 
 def test_serve_main_needs_a_card_by_default(monkeypatch):

@@ -102,3 +102,39 @@ def test_driver_trains_and_resumes_deepseek(tmp_path, arch):
     out = train_main(common + ["--ckpt-dir", str(tmp_path / "b")])
     assert out["resumed_from"] == 3 and len(out["losses"]) == 3
     np.testing.assert_allclose(out["losses"], ref["losses"][3:], rtol=1e-4)
+
+
+@pytest.mark.parametrize("fsdp", [False, True], ids=["plain", "fsdp"])
+def test_driver_plan_equals_reference_driver(fsdp, capsys):
+    """The driver compiles its plan as the reference's ``build`` does
+    (``build_lm_graph`` of the run's shape, then ``optimize`` on a
+    one-slot data axis, ``--fsdp`` passed through): the same plan JSON,
+    printed on one ``[train] plan:`` line and held by the LM."""
+    import argparse
+
+    from repro.core.ir import reset_fresh_names as jreset
+    from repro.launch.train import build as jbuild
+    from repro_torch.core.ir import reset_fresh_names
+    from repro_torch.launch.train import build
+
+    args = argparse.Namespace(arch="smollm-135m", smoke=True, steps=10,
+                              batch=2, seq=16, lr=1e-3, remat="none",
+                              fsdp=fsdp, device="cpu")
+    jreset()
+    want = jbuild(args)[3]
+    reset_fresh_names()
+    _, lm, _, _ = build(args)
+    assert lm.plan.to_json() == want.to_json()
+    assert lm.plan.fsdp is fsdp and lm.plan.mesh_spec.axes == \
+        (("data", 1), ("model", 1))
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[train] plan:")]
+    assert len(lines) == 1 and f"fsdp {fsdp}" in lines[0], lines
+
+
+def test_driver_returns_its_plan(tmp_path):
+    out = train_main(COMMON[:3] + ["--steps", "2", "--batch", "2", "--seq",
+                                   "16", "--device", "cpu", "--ckpt-every",
+                                   "0", "--ckpt-dir", str(tmp_path)])
+    assert out["plan"] is not None and not out["plan"].fsdp
+    assert out["plan"].meta["graph"] == "smollm-135m-smoke_cli"
