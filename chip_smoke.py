@@ -74,8 +74,13 @@ d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
    (a first divergence is accepted only where the eager run's top-2
    logit margin at that token is under 0.05); two requests of the graph
    run are re-decoded with ``decode_offline`` and must match token for
-   token under the same rule (with the offline margin).  Both runs print
-   tok/s,
+   token under the same rule (with the offline margin).  Then the plain
+   path (``use_kernels=False``, the reference's serving path,
+   ``launch/serve.py --plain``) serves the same trace from the same
+   weights on graphs, launching no kernel; the kernel path's greedy
+   tokens on graphs must equal its tokens, a first divergence accepted
+   only where the plain run's top-2 logit margin is under 0.05.  Every
+   run prints tok/s,
    p50/p99, ms per decode step, prefill s and peak memory, the graph run
    also the graphs captured and their capture seconds.  Then one decode
    step of the slot batch, eager and replayed, under ``torch.profiler``:
@@ -214,7 +219,21 @@ d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
    serving shape into a fresh temporary plan cache: cold, then a hit of
    the same plan, both times printed.  Phase 13's driver compiles its
    plan the same way (``[train] plan:``) on a mesh of one data and one
-   model slot, where every constraint is the identity.
+   model slot, where every constraint is the identity.  Then the lint
+   CLI's ``lint_one`` (``repro_torch.lint``) on the ten smoke archs and
+   ``synth_1k``, every verdict ``ok``, each target's compile seconds
+   printed; ``optimize`` of ``synth_5k`` on ``SINGLE_POD`` (verifier
+   clean, no degradation) and the build of ``synth_10k``, timed, on
+   ``[compiler]`` lines that name the host's CPU beside the card;
+19. mesh: a single-rank NCCL process group and a ``(1, 1)``
+   ``("data", "model")`` ``DeviceMesh`` (``launch.mesh.make_host_mesh``),
+   its set-up seconds; smollm-135m's params at full width distributed by
+   ``launch.steps.sharding_tree`` under its train plan, every local shard
+   bit-equal to its full tensor; then phase 13's uninterrupted driver
+   run again, now through the mesh (the driver finds the process group
+   and builds its ``(1, 1)`` mesh: one rank, so the step stays on its
+   CUDA graph), its losses bit-equal to phase 13's, no kernel launched;
+   the group is destroyed after.  On ``[mesh]`` lines.
 
 Each path's launch counts are set to 0 just before it and read just
 after; the kernels' ``launches`` are their sums over phases 4-10 and
@@ -250,9 +269,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import SHAPES, get_config, list_archs  # noqa: E402
-from repro_torch.core import (SINGLE_POD, balance_paths,  # noqa: E402
-                              build_lm_graph, construct_functional,
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch.configs import (SHAPES, get_config, get_synth,  # noqa: E402
+                                 list_archs)
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.core import (SINGLE_POD, MeshSpec,  # noqa: E402
+                              balance_paths, build_lm_graph,
+                              construct_functional,
                               eliminate_multi_producers, fuse_tasks,
                               lower_to_structural, optimize)
 from repro_torch.core.ir import reset_fresh_names  # noqa: E402
@@ -279,7 +303,10 @@ from repro_torch.launch.scheduler import (ContinuousBatcher,  # noqa: E402
                                           Request, decode_offline,
                                           prefill_bucket, run_static)
 from repro_torch.launch.serve import fetch_plan, make_trace  # noqa: E402
-from repro_torch.launch.steps import build_train_step  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.steps import (build_train_step,  # noqa: E402
+                                      distribute_tree, sharding_tree)
+from repro_torch.lint import lint_one  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
@@ -372,6 +399,9 @@ DS_TRAIN_LAYERS, DS_TRAIN_B, DS_TRAIN_S, DS_TRAIN_STEPS = 3, 2, 1024, 3
 #: the plan at this shape on ``SINGLE_POD``
 GOLDEN_DIR = ROOT / "tests" / "goldens" / "pre_dse"
 GOLDEN_SHAPE = "train_4k"
+#: phase 18's lint targets beside the ten smoke archs, and the synthetic
+#: graphs compiled (on ``SINGLE_POD``) and built only
+LINT_SYNTH, COMPILE_SYNTH, BUILD_SYNTH = "synth_1k", "synth_5k", "synth_10k"
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1159,6 +1189,27 @@ def check_served(cfg, run: Served, n_requests: int, steps: int,
                                  f"over {steps} decode steps")
 
 
+def parted_requests(tag: str, want: Served, got: Served, margins: Margins,
+                    what: str) -> int:
+    """``got`` streamed ``want``'s tokens, or parted first at a token whose
+    top-2 logit margin in ``want`` (recorded in ``margins``) was under
+    ``MARGIN``.  Returns how many requests parted."""
+    by_rid = {r.rid: r.out for r in want.rep.requests}
+    parted = 0
+    for r in got.rep.requests:
+        i = _first_divergence(r.out, by_rid[r.rid])
+        if i is None:
+            continue
+        m = margins.by_rid[r.rid][i]
+        print(f"[serve] {tag} rid {r.rid}: {what} at token {i} of "
+              f"{r.max_new}, top-2 logit margin there {m:.4f}")
+        if m >= MARGIN:
+            raise AssertionError(f"{tag} rid {r.rid}: {what} at token {i} "
+                                 f"with margin {m} >= {MARGIN}")
+        parted += 1
+    return parted
+
+
 def check_graph_run(tag: str, eager: Served, graph: Served,
                     margins: Margins) -> int:
     """The graph run launched what the eager run did, and streamed its
@@ -1167,21 +1218,8 @@ def check_graph_run(tag: str, eager: Served, graph: Served,
     if graph.counts != eager.counts:
         raise AssertionError(f"{tag}: graph run launches {graph.counts}, "
                              f"eager run {eager.counts}")
-    by_rid = {r.rid: r.out for r in eager.rep.requests}
-    parted = 0
-    for r in graph.rep.requests:
-        i = _first_divergence(r.out, by_rid[r.rid])
-        if i is None:
-            continue
-        m = margins.by_rid[r.rid][i]
-        print(f"[serve] {tag} rid {r.rid}: the graph run parts from the "
-              f"eager run at token {i} of {r.max_new}, eager top-2 logit "
-              f"margin {m:.4f}")
-        if m >= MARGIN:
-            raise AssertionError(f"{tag} rid {r.rid}: graph run diverges at "
-                                 f"token {i} with margin {m} >= {MARGIN}")
-        parted += 1
-    return parted
+    return parted_requests(tag, eager, graph, margins,
+                           "the graph run parts from the eager run")
 
 
 def print_served(tag: str, mode: str, run: Served, ms_step: float,
@@ -1199,14 +1237,18 @@ def print_served(tag: str, mode: str, run: Served, ms_step: float,
 
 def phase_serve(lm_k: LM, params, device: dict, n_requests: int = REQUESTS,
                 prompt_range=PROMPT_RANGE, gen_range=GEN_RANGE,
-                s_max: int | None = None) -> dict:
+                s_max: int | None = None, lm_plain: LM | None = None) -> dict:
+    """Serving eager and on graphs; with ``lm_plain`` (phase 5) also on
+    the plain path on graphs, the reference's serving path
+    (``launch/serve.py --plain``), whose greedy tokens the kernel path's
+    must stream up to near-ties."""
     cfg = lm_k.cfg
     s_max = s_max or prefill_bucket(prompt_range[1], 16) + gen_range[1]
     trace = make_trace(cfg, n_requests, seed=SEED,
                        prompt_len_range=prompt_range, gen_range=gen_range)
 
-    def serve(graphs_on: bool):
-        b = ContinuousBatcher(lm_k, params, slots=SLOTS, s_max=s_max,
+    def serve(graphs_on: bool, lm: LM = lm_k):
+        b = ContinuousBatcher(lm, params, slots=SLOTS, s_max=s_max,
                               seed=SEED, graphs=graphs_on)
         for t in trace:
             b.submit(t["prompt"], t["max_new"], prompt_len=t["prompt_len"],
@@ -1238,6 +1280,25 @@ def phase_serve(lm_k: LM, params, device: dict, n_requests: int = REQUESTS,
             f"{n_requests} requests part from the eager run's tokens")
         print_served(tag, mode, run, run.rep.decode_s
                      / max(run.rep.steps, 1) * 1e3, extra)
+    if lm_plain is not None:
+        # the reference's serving path: no kernel, on graphs (captured in
+        # this run), its margins recorded
+        plain_margins = Margins()
+        plain = serve_run(lambda: plain_margins.run(
+            lambda: serve(True, lm_plain)))
+        check_served(cfg, plain, n_requests, plain.rep.steps, per_step=())
+        if any(plain.counts.values()):
+            raise AssertionError(f"the plain path launched {plain.counts}")
+        off = parted_requests(f"{cfg.name} kernels vs plain", plain, graph,
+                              plain_margins, "the kernel path parts from "
+                              "the plain path")
+        print_served(tag, "plain", plain, plain.rep.decode_s
+                     / max(plain.rep.steps, 1) * 1e3,
+                     f" (on graphs, captured in this run); the kernel path "
+                     f"on graphs streams its greedy tokens in "
+                     f"{n_requests - off} of {n_requests} requests, the "
+                     f"other {off} parting at a top-2 margin under "
+                     f"{MARGIN}")
     print(f"[serve] {cfg.name}: graphs / eager tok/s "
           f"{graph.rep.tok_per_s / eager.rep.tok_per_s:.2f}x, ms a decode "
           f"step {graph.rep.decode_s / max(graph.rep.steps, 1) * 1e3:.2f} "
@@ -1412,7 +1473,7 @@ def main() -> int:
 
     cfg, lm_k, lm_p, params = build_model(ARCH)
     paths = [phase_prefill(lm_k, lm_p, params)[0],
-             phase_serve(lm_k, params, device)]
+             phase_serve(lm_k, params, device, lm_plain=lm_p)]
     phase_decode_profile(lm_k, params,
                          prefill_bucket(PROMPT_RANGE[1], 16) + GEN_RANGE[1])
     graphs.release()
@@ -1443,7 +1504,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train()
     torch.cuda.empty_cache()
-    phase_train_driver()
+    driver = phase_train_driver()
     torch.cuda.empty_cache()
     paths += phase_frontends(device)
     for arch, n_layers, phase in ((DS2, DS2_LAYERS, 16),
@@ -1455,6 +1516,8 @@ def main() -> int:
     phase_deepseek_train()
     print(f"[deepseek] phase 17 train took {time.perf_counter() - t0:.1f} s")
     phase_compiler(device)
+    phase_lint(device)
+    phase_mesh(driver["a"]["losses"], device)
 
     main_path = {k: sum(p[k] for p in paths) for k in COUNTED}
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -2128,16 +2191,21 @@ def phase_checkpoint(directory: Path) -> dict:
     return rec
 
 
+def driver_argv() -> list:
+    """Phase 13's driver flags (19 runs them again on a mesh)."""
+    return ["--arch", ARCH, "--device", DEVICE, "--seed", str(SEED),
+            "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+            "--remat", "full", "--lr", str(TRAIN_LR),
+            "--steps", str(DRIVER_STEPS)]
+
+
 def phase_train_driver() -> dict:
     """13. The train driver at full width on its graph: uninterrupted
     (and once more with ``graphs=False``, the losses bit-equal),
     preempted, resumed (the losses bit-equal to the uninterrupted run's);
     then the checkpoint itself."""
     t0 = time.perf_counter()
-    common = ["--arch", ARCH, "--device", DEVICE, "--seed", str(SEED),
-              "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
-              "--remat", "full", "--lr", str(TRAIN_LR),
-              "--steps", str(DRIVER_STEPS)]
+    common = driver_argv()
     d = Path(tempfile.mkdtemp(prefix="repro_torch_ckpt_"))
     try:
         reset_counts()
@@ -2475,6 +2543,121 @@ def phase_compiler(device: dict) -> dict:
           f"{ci['fetch_ms']:.1f} ms, then a hit of the same plan in "
           f"{hi['fetch_ms']:.2f} ms")
     print(f"[compiler] phase 18 took {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def phase_lint(device: dict) -> dict:
+    """18, continued. The lint CLI's verdict (``repro_torch.lint``) on the
+    ten smoke archs and ``synth_1k``, as the reference's lint suite runs
+    them, every one ``ok``; then ``optimize`` of ``synth_5k`` on
+    ``SINGLE_POD`` and the build of ``synth_10k``, timed on the host."""
+    t0 = time.perf_counter()
+    rec = {}
+    for target in list_archs() + [LINT_SYNTH]:
+        reset_fresh_names()
+        res = lint_one(target)
+        if not res["ok"] or res["errors"] or res["verify_errors"]:
+            raise AssertionError(f"lint {target}: {json.dumps(res)}")
+        rec[target] = {k: res[k] for k in ("checks", "nodes", "wall_s",
+                                           "analyze_s")}
+        print(f"[compiler] lint {target}: ok, {res['checks']} checks, "
+              f"{len(res['rules_run'])} rules, {len(res['warnings'])} "
+              f"warnings, {len(res['degradations'])} degradations, "
+              f"{res['nodes']} nodes; compile {res['wall_s']:.3f} s, "
+              f"analyze {res['analyze_s'] * 1e3:.2f} ms")
+    reset_fresh_names()
+    t1 = time.perf_counter()
+    g = get_synth(COMPILE_SYNTH)
+    build_s = time.perf_counter() - t1
+    sched, _plan, rep = optimize(g, SINGLE_POD)
+    compile_s = time.perf_counter() - t1
+    if rep.verify.issues or rep.degradations:
+        raise AssertionError(f"{COMPILE_SYNTH}: verify "
+                             f"{rep.verify.summary()}, degraded "
+                             f"{rep.degradations}")
+    t1 = time.perf_counter()
+    big = get_synth(BUILD_SYNTH)
+    big_s = time.perf_counter() - t1
+    n_big = sum(1 for _ in big.walk())
+    rec["compile"] = {"synth": COMPILE_SYNTH, "build_s": build_s,
+                      "compile_s": compile_s, "nodes": len(sched.nodes),
+                      "regions": rep.regions}
+    rec["build"] = {"synth": BUILD_SYNTH, "build_s": big_s, "ops": n_big}
+    print(f"[compiler] {COMPILE_SYNTH}: build {build_s:.3f} s, build + "
+          f"optimize {compile_s:.3f} s ({len(sched.nodes)} nodes, "
+          f"{rep.regions} regions, verifier clean); {BUILD_SYNTH}: build "
+          f"{big_s:.3f} s ({n_big} ops); {LINT_SYNTH} optimize "
+          f"{rec[LINT_SYNTH]['wall_s']:.3f} s; on the host ({host_cpu()}, "
+          f"{os.cpu_count()} logical CPUs), beside {device['smi']}")
+    print(f"[compiler] lint and synthetic graphs took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def phase_mesh(want_losses: list, device: dict) -> dict:
+    """19. The port's plans on a ``DeviceMesh`` of the card: a single-rank
+    NCCL group and a ``(1, 1)`` mesh (``launch.mesh.make_host_mesh``);
+    smollm-135m's params at full width distributed by ``sharding_tree``
+    under its train plan, each local shard equal to its full tensor; then
+    phase 13's driver run on that mesh, its losses bit-equal to phase
+    13's run without one."""
+    t0 = time.perf_counter()
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before phase 19")
+    mesh = make_host_mesh((1, 1), device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    backend = dist.get_backend()
+    d = Path(tempfile.mkdtemp(prefix="repro_torch_mesh_"))
+    try:
+        cfg = get_config(ARCH)
+        reset_fresh_names()
+        _, plan, _ = optimize(build_lm_graph(cfg, ShapeSpec(
+            "cli", TRAIN_S, TRAIN_B, "train")),
+            MeshSpec((("data", 1), ("model", 1))))
+        lm = LM(cfg, device=DEVICE, plan=plan)
+        params, dims = lm.init(SEED)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        placed = distribute_tree(params, sharding_tree(
+            dims, mesh, plan, weight=True, shapes_tree=params))
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t1
+        full, local = _flatten(params), _flatten(placed)
+        bad = [k for (k, a), (_, b) in zip(full, local)
+               if not _bits_equal(b.to_local(), a)]
+        if bad or len(full) != len(local):
+            raise AssertionError(f"local shards differ from the full "
+                                 f"tensors at {bad[:5]}")
+        nbytes = sum(v.numel() * v.element_size() for _, v in full)
+        n_leaves = len(full)
+        del placed, params, lm, full, local
+        torch.cuda.empty_cache()
+        reset_counts()
+        run = driver_run("mesh", driver_argv() + [
+            "--ckpt-dir", str(d), "--ckpt-every", "0"])
+        counts = read_counts()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        dist.destroy_process_group()
+    if any(counts.values()):
+        raise AssertionError(f"the driver on the mesh launched {counts}")
+    if run["world"] != 1 or run["losses"] != want_losses:
+        raise AssertionError(f"driver on the (1, 1) mesh: world "
+                             f"{run['world']}, losses {run['losses']} vs "
+                             f"phase 13's {want_losses}")
+    rec = {"setup_s": setup_s, "place_s": place_s, "leaves": n_leaves,
+           "bytes": nbytes,
+           "ms_per_step": run["ms_per_step"],
+           "phase_s": time.perf_counter() - t0}
+    print(f"[mesh] {backend} group of 1 rank and a (1, 1) mesh set up in "
+          f"{setup_s:.3f} s on {device['kind']} ({device['smi']}); "
+          f"{ARCH}'s {rec['leaves']} param leaves ({nbytes / 1e9:.3f} GB) "
+          f"distributed by sharding_tree in {place_s:.3f} s, every local "
+          f"shard equal to its full tensor; the driver on the mesh: "
+          f"{len(run['losses'])} losses bit-equal to phase 13's run "
+          f"without it, the loop {run['ms_per_step']:.1f} ms a step, no "
+          f"kernel launch")
+    print(f"[mesh] phase 19 took {rec['phase_s']:.1f} s")
     return rec
 
 

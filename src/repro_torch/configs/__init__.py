@@ -1,15 +1,16 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The same ten architectures as ``repro.configs``, full and smoke.  The
-synthetic ``synth_*`` graphs are not registered here: they come from the
-compiler's graph generator (``repro.core.generate``), which the port's
-compiler (``repro_torch.core``) does not include yet.
+The same ten architectures as ``repro.configs``, full and smoke, and
+beside them the synthetic ``synth_*`` graphs of the compiler's graph
+generator (``repro_torch.core.generate``), as the reference registers
+them.
 """
 from __future__ import annotations
 
 import importlib
 
 from .base import SHAPES, ArchConfig, ShapeSpec, shape_applicable
+from ..core.generate import SYNTH_CONFIGS, get_synth, list_synths
 
 _ARCH_MODULES = {
     "jamba-v0.1-52b": "jamba_v0_1_52b",
@@ -37,4 +38,7 @@ def get_config(arch: str, smoke: bool = False) -> ArchConfig:
 
 
 __all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "shape_applicable",
-           "get_config", "list_archs"]
+           "get_config", "list_archs",
+           # Synthetic scale-stress graphs ride the same registry so
+           # benches and tests resolve them next to the real archs.
+           "SYNTH_CONFIGS", "get_synth", "list_synths"]

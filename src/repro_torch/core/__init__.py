@@ -9,8 +9,10 @@ plan cache.  Given the same config and shape they derive the reference's
 schedules and plans bit for bit (``tests/test_torch_core_*.py``), and a
 plan cache written by either package is a hit for the other.  The cost
 model keeps the reference's per-chip constants for that reason
-(``estimator.py``, ``verify.py``).  Not ported: ``generate.py`` (the
-``synth_*`` graphs) and ``pipeline.py`` (the GPipe runtime).
+(``estimator.py``, ``verify.py``).  ``generate.py`` builds the
+``synth_*`` scale-stress graphs and ``pipeline.py`` holds the stage
+analysis; the GPipe runtime of the reference's ``pipeline.py`` needs
+collectives across ranks and is not ported yet (ROADMAP A12).
 """
 from .analyze import (AnalysisIssue, AnalysisRule, AnalyzeReport, analyze,
                       analyze_plan, register_rule, registered_rules)
@@ -21,6 +23,7 @@ from .estimator import (MULTI_POD, SINGLE_POD, MeshSpec, estimate,
 from .faults import (FaultInjector, InjectedFault, active_injector,
                      fault_point, inject_faults)
 from .fusion import fuse_tasks
+from .generate import SYNTH_CONFIGS, SynthSpec, build_synth_graph, get_synth
 from .graph import build_lm_graph
 from .incremental import IncrementalEstimator
 from .ir import (AccessMap, Buffer, Graph, GraphTopology, MemoryEffect, Node,
@@ -46,6 +49,7 @@ __all__ = [
     "SINGLE_POD",
     "MULTI_POD", "estimate", "IncrementalEstimator", "roofline_terms",
     "construct_functional",
+    "SYNTH_CONFIGS", "SynthSpec", "build_synth_graph", "get_synth",
     "fuse_tasks", "lower_to_structural", "eliminate_multi_producers",
     "balance_paths", "parallelize", "best_uniform", "ShardingPlan",
     "build_plan",

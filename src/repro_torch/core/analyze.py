@@ -77,8 +77,8 @@ Where it runs: on every :func:`repro_torch.core.optimize.optimize` exit
 ``report.analyze_s``), on :meth:`repro_torch.core.plan_cache.PlanCache.fetch`
 before a cached plan is reused (plan-only rules, via
 :func:`analyze_plan`), as a serving pre-flight in
-``repro_torch.launch.serve`` (the reference's CI CLI, ``python -m
-repro.lint``, is not ported).
+``repro_torch.launch.serve``, and as the CI CLI ``python -m
+repro_torch.lint``.
 """
 from __future__ import annotations
 

@@ -5,10 +5,13 @@ A copy of the reference's ``repro.core.plan`` without JAX.  The data half
 the delta re-projection, ``build_plan`` / ``project_rules``) is the
 reference's, line for line.  Specs are plain tuples whose entries equal
 those of the reference's ``PartitionSpec`` (``None``, an axis name, or a
-tuple of names).  The port runs on one card with no device mesh, so
-:meth:`ShardingPlan.constrain` returns its input, as the reference's does
-outside a mesh context; placing tensors on a ``DeviceMesh`` (the
-reference's ``named_sharding``) is not ported yet.
+tuple of names).  On a ``torch.distributed`` ``DeviceMesh`` a spec
+becomes DTensor placements in JAX's order (:func:`placements`), and
+:meth:`ShardingPlan.named_sharding` pairs the mesh with them, as the
+reference's ``NamedSharding`` does.  :meth:`ShardingPlan.constrain`
+redistributes a ``DTensor`` under the ambient mesh (``set_mesh`` in
+``repro_torch.launch.mesh``) and returns anything else as it is, as the
+reference's does outside a mesh context.
 
 ``build_plan`` converts a parallelized Structural schedule into:
 
@@ -53,6 +56,88 @@ Spec = tuple
 #: persistent plan cache (:mod:`repro_torch.core.plan_cache`) rejects entries
 #: whose version differs instead of misapplying a stale layout.
 PLAN_FORMAT_VERSION = 1
+
+#: The ambient ``DeviceMesh`` stack that ``launch.mesh.set_mesh`` pushes
+#: and pops; :meth:`ShardingPlan.constrain` reads its top.
+_MESHES: list = []
+
+
+def ambient_mesh():
+    """The innermost ``set_mesh`` mesh, or ``None`` outside one."""
+    return _MESHES[-1] if _MESHES else None
+
+
+def _spec_axes(entry) -> Axes:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(mesh, spec: Spec) -> tuple:
+    """DTensor placements, one per mesh dim, that lay a tensor out as
+    the reference's ``NamedSharding(mesh, PartitionSpec(*spec))`` does.
+
+    Where one tensor dim carries several mesh axes, JAX reads them in the
+    spec's order, the first named the major one.  DTensor nests
+    ``Shard`` placements in mesh-dim order instead, so an axis that the
+    spec names after an axis of a later mesh dim takes a
+    ``_StridedShard`` whose split factor is the product of those earlier-
+    named, later-mesh-dim axes: on a ``("data", "model")`` mesh the spec
+    ``(("model", "data"),)`` is ``[_StridedShard(0, split_factor=|model|),
+    Shard(0)]``.  This is the one place that uses the private
+    ``_StridedShard``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    names = tuple(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for tdim, entry in enumerate(spec):
+        axes = _spec_axes(entry)
+        for i, axis in enumerate(axes):
+            m = names.index(axis)
+            split = 1
+            for major in axes[:i]:
+                if names.index(major) > m:
+                    split *= mesh.size(names.index(major))
+            out[m] = (Shard(tdim) if split == 1
+                      else _StridedShard(tdim, split_factor=split))
+    return tuple(out)
+
+
+def check_layout(mesh, spec: Spec, shape: Sequence[int]) -> None:
+    """Raise where DTensor cannot hold JAX's layout of ``shape``.  JAX
+    cuts a dim into ceil-sized shards, the last short or empty, over the
+    product of its axes; DTensor's ``Shard`` cuts the same way for one
+    axis, but nests its cuts for several, which differs as soon as the
+    product does not divide the dim."""
+    names = tuple(mesh.mesh_dim_names)
+    for tdim, entry in enumerate(spec):
+        axes = _spec_axes(entry)
+        if len(axes) < 2:
+            continue
+        n = 1
+        for axis in axes:
+            n *= mesh.size(names.index(axis))
+        if shape[tdim] % n:
+            raise ValueError(
+                f"dim {tdim} of size {shape[tdim]} is sharded over "
+                f"{axes} ({n} shards): uneven over several mesh axes, "
+                "which DTensor cannot lay out as JAX does")
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """The mesh, the reference's spec and the DTensor placements that lay
+    it out: the counterpart of ``jax.sharding.NamedSharding``."""
+    mesh: object
+    spec: Spec
+    placements: tuple
+
+    def distribute(self, x):
+        """``x``, the full tensor (rank 0's), as a DTensor of this layout:
+        each rank keeps its shard."""
+        from torch.distributed.tensor import distribute_tensor
+        check_layout(self.mesh, self.spec, x.shape)
+        return distribute_tensor(x, self.mesh, list(self.placements))
 
 
 @dataclass
@@ -166,10 +251,30 @@ class ShardingPlan:
 
     # -- application ----------------------------------------------------------
     def constrain(self, x, dims: Sequence[str], site: str | None = None):
-        """Apply a sharding constraint at a Structural buffer site.  The
-        port has no device mesh, and the reference's constraint is a no-op
-        outside one, so this returns ``x``."""
-        return x
+        """Apply a sharding constraint at a Structural buffer site: under
+        an ambient mesh (``launch.mesh.set_mesh``) a ``DTensor`` is
+        redistributed to the site's placements.  A plain tensor, or any
+        tensor outside a mesh, is returned as it is, as the reference's
+        constraint is a no-op outside a mesh context."""
+        mesh = ambient_mesh()
+        if mesh is None:
+            return x
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            return x
+        spec = self.spec_for_dims(dims, site)
+        check_layout(mesh, spec, x.shape)
+        return x.redistribute(mesh, placements(mesh, spec))
+
+    def named_sharding(self, mesh, dims: Sequence[str],
+                       site: str | None = None, weight: bool = False,
+                       shape: Sequence[int] | None = None) -> NamedSharding:
+        """The layout of a tensor of logical ``dims`` on ``mesh``: the
+        weight spec (``param_spec``, FSDP included) or the buffer spec,
+        as the reference's ``named_sharding``."""
+        spec = (self.param_spec(dims, site, shape) if weight
+                else self.spec_for_dims(dims, site))
+        return NamedSharding(mesh, spec, placements(mesh, spec))
 
     # -- incremental re-projection --------------------------------------------
     def add_role_alias(self, role: str, source: str) -> None:

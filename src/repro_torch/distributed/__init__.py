@@ -1,10 +1,10 @@
-"""Checkpointing, straggler policy and elastic re-stitching: the
-counterpart of ``repro.distributed``, less ``mesh_for_hosts`` and
-``replan_for_topology``, which wait for the device mesh (ROADMAP A8) and
-A14's rest."""
+"""Checkpointing, straggler policy, elastic re-stitching and re-planning:
+the counterpart of ``repro.distributed``."""
 from .checkpoint import CheckpointManager
-from .elastic import gather_full_tree, reshard_checkpoint, scale_batch_schedule
+from .elastic import (gather_full_tree, mesh_for_hosts, replan_for_topology,
+                      reshard_checkpoint, scale_batch_schedule)
 from .straggler import StragglerMonitor
 
 __all__ = ["CheckpointManager", "gather_full_tree", "reshard_checkpoint",
-           "scale_batch_schedule", "StragglerMonitor"]
+           "mesh_for_hosts", "replan_for_topology", "scale_batch_schedule",
+           "StragglerMonitor"]

@@ -1,17 +1,18 @@
 """Elastic scaling: re-stitch checkpoints across host-count changes.
 
-Counterpart of the half of ``repro.distributed.elastic`` that works on
-the checkpoint format alone.  A job restarted on a different topology
-(16→8 hosts after failures, or grown back to 16) calls
-``reshard_checkpoint``: every host loads the union of the old shards it
-needs and slices out its new shard.  Because the data loader is keyed by
-``(step, shard)`` (see ``repro_torch.data``), the input stream
-re-partitions consistently too — no sample is lost or duplicated.
+Counterpart of ``repro.distributed.elastic``.  A job restarted on a
+different topology (16→8 hosts after failures, or grown back to 16)
+calls ``reshard_checkpoint``: every host loads the union of the old
+shards it needs and slices out its new shard.  Because the data loader
+is keyed by ``(step, shard)`` (see ``repro_torch.data``), the input
+stream re-partitions consistently too — no sample is lost or
+duplicated.
 
 For one process the "hosts" are simulated shard files; the stitching
-logic is identical to the multi-host case.  ``mesh_for_hosts`` needs the
-device mesh (ROADMAP A8), and ``replan_for_topology`` is not ported yet
-(ROADMAP A14's rest).
+logic is identical to the multi-host case.  ``mesh_for_hosts`` gives the
+compile mesh after a rescale, and ``replan_for_topology`` re-plans for
+it warm from the plan cache (both over ``repro_torch.core``, on the
+host alone).
 """
 from __future__ import annotations
 
@@ -92,6 +93,39 @@ def reshard_checkpoint(src_dir: str | Path, step: int, like: Any,
     for h in range(new_n_hosts):
         mgr = CheckpointManager(dst_dir, host_id=h, n_hosts=new_n_hosts)
         mgr.save(step, full, blocking=True)
+
+
+def mesh_for_hosts(n_hosts: int, base: "MeshSpec" = None) -> "MeshSpec":
+    """The serving/compile mesh after an elastic rescale: the data axis
+    scales with the surviving host count, the model axis is untouched
+    (re-sharding weights across a *different model parallelism* is a
+    checkpoint rewrite, not an elastic event)."""
+    from ..core.estimator import SINGLE_POD, MeshSpec
+    base = base if base is not None else SINGLE_POD
+    axes = tuple((a, n_hosts if a in ("data", "pod") and i == 0 else s)
+                 for i, (a, s) in enumerate(base.axes))
+    return MeshSpec(axes)
+
+
+def replan_for_topology(cache, cfg, *, new_mesh, bucket: str,
+                        graph_factory, optimize_kwargs: dict | None = None):
+    """Re-plan after a host-count change — warm, not cold.
+
+    An elastic rescale (16→8 hosts after failures, back to 16 on
+    recovery) changes the mesh, so the old
+    :class:`~repro_torch.core.PlanKey` misses.  Routing the miss through
+    :func:`~repro_torch.core.fetch_or_optimize` means the cache's
+    :meth:`~repro_torch.core.PlanCache.nearest` finds the
+    *same-fingerprint* entry from the previous topology (same config
+    outranks same mesh in donor scoring) and seeds the DSE from its
+    assignment — the restarted job pays a warm re-DSE, a fraction of the
+    cold wall, and the new plan is cached so the *next* rescale back to
+    this topology is a sub-ms hit.  Returns ``(plan, source, report)``
+    exactly like :func:`~repro_torch.core.fetch_or_optimize`."""
+    from ..core.plan_cache import PlanKey, fetch_or_optimize
+    key = PlanKey.make(cfg, new_mesh, bucket)
+    return fetch_or_optimize(cache, key, new_mesh, graph_factory,
+                             optimize_kwargs=optimize_kwargs)
 
 
 def scale_batch_schedule(global_batch: int, old_hosts: int,

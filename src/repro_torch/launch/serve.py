@@ -27,11 +27,15 @@ persists); a miss runs the port's HIDA compiler (``repro_torch.core``),
 warm-started from the nearest cached plan of the same config where there
 is one.  The cache's files are the reference's, so a plan that either
 package cached is a hit for the other.  The plan is linted
-(``analyze_plan``) and the LM built under it; on one card its
-constraints are the identity (placing tensors on a device mesh is
-ROADMAP A8).  ``--no-plan`` skips the fetch.  The model runs
-with ``use_kernels=True``: the RMSNorm kernel at every norm site of
-every decode step, and the grouped-matmul kernel in every MoE FFN.
+(``analyze_plan``) and the LM built under it; its constraints are the
+identity on the plain tensors the server holds (``ShardingPlan.constrain``
+redistributes only DTensors).  ``--no-plan`` skips the fetch.  By
+default the model runs with ``use_kernels=True``: the RMSNorm kernel at
+every norm site of every decode step, and the grouped-matmul kernel in
+every MoE FFN.  ``--plain`` builds it with ``use_kernels=False``, the
+reference's serving path (``repro.launch.serve`` serves without its
+kernels), which ``chip_smoke.py`` holds the kernel path's greedy tokens
+to on the card.
 Prompts are prefilled as decode steps, so attention reads the KV cache
 and the mLSTM and Mamba run their step forms there; the flash-attention,
 mLSTM chunkwise and selective-scan kernels serve ``LM.prefill``.
@@ -158,6 +162,9 @@ def main(argv=None) -> dict:
         "(default: $REPRO_PLAN_CACHE; unset = no persistence)")
     ap.add_argument("--no-plan", action="store_true",
                     help="skip the DSE/plan fetch entirely")
+    ap.add_argument("--plain", action="store_true",
+                    help="serve on the plain PyTorch path, the reference's "
+                    "(no hand-written kernels)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
     args = ap.parse_args(argv)
@@ -183,7 +190,7 @@ def main(argv=None) -> dict:
         plan_info["lint"] = {"ok": lint.ok,
                              "issues": [str(i) for i in lint.issues]}
         print(f"[serve] lint: {lint.summary()}")
-    lm = LM(cfg, use_kernels=True, device=args.device, plan=plan)
+    lm = LM(cfg, use_kernels=not args.plain, device=args.device, plan=plan)
     params, _ = lm.init(args.seed)
     trace = make_trace(cfg, args.requests, seed=args.seed,
                        prompt_len_range=(pl_lo, pl_hi),
@@ -193,6 +200,7 @@ def main(argv=None) -> dict:
     before = graphs.stats()
     is_moe = any(ffn == "moe" for _, ffn in cfg.layer_kinds())
     metrics: dict = {"arch": args.arch, "device": str(lm.device),
+                     "use_kernels": lm.use_kernels,
                      "plan": {k: v for k, v in plan_info.items()
                               if k != "report"}}
     if is_moe:

@@ -1,11 +1,14 @@
 """The train step: gradients of ``LM.loss_fn`` by autograd, then AdamW.
 
-Counterpart of ``repro.launch.steps.build_train_step`` without the
-shardings: the LM takes the plan, whose constraints are the identity on
-one card (placing tensors on a mesh is ROADMAP A8).  The step runs the plain
-PyTorch paths, as the reference trains without its kernels: none of the
-hand-written kernels has a backward pass, and their wrappers refuse a
-gradient.  It runs on ``cuda`` unless the caller passes ``device="cpu"``.
+Counterpart of ``repro.launch.steps.build_train_step``: the LM takes the
+plan, whose constraints redistribute DTensors under an ambient mesh and
+are the identity on plain tensors.  ``sharding_tree`` maps a tree of
+logical dims to the plan's layouts on a ``DeviceMesh`` (the reference's
+``sharding_tree``), and ``distribute_tree`` places a param or cache tree
+by them.  The step runs the plain PyTorch paths, as the reference
+trains without its kernels: none of the hand-written kernels has a
+backward pass, and their wrappers refuse a gradient.  It runs on
+``cuda`` unless the caller passes ``device="cpu"``.
 
     step = build_train_step(get_config("smollm-135m", smoke=True),
                             device="cpu")
@@ -32,6 +35,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ArchConfig
 from ..models.lm import LM
@@ -40,6 +44,49 @@ from ..optim.adamw import tree_leaves, tree_unflatten
 from .graphs import TrainGraph
 
 F32 = torch.float32
+
+
+def _is_dims_leaf(x) -> bool:
+    return (isinstance(x, tuple)
+            and all(isinstance(i, str) for i in x)) or x == ()
+
+
+def _map_tree(fn, tree, *rest, is_leaf):
+    """``fn`` over the leaves of ``tree`` (dicts, tuples and NamedTuples;
+    ``None`` stays ``None``), with the matching nodes of ``rest``."""
+    if tree is None:
+        return None
+    if is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_map_tree(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+                 for i, v in enumerate(tree)]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else tuple(items)
+    raise TypeError(f"not a tree node: {type(tree).__name__}")
+
+
+def sharding_tree(dims_tree, mesh, plan, weight: bool = False,
+                  shapes_tree=None):
+    """Map a logical-dims tree to ``NamedSharding``s on ``mesh``: weight
+    specs (FSDP included, given the leaves' shapes through
+    ``shapes_tree``) with ``weight``, buffer specs otherwise."""
+    def one(dims, leaf=None):
+        shape = tuple(leaf.shape) if (leaf is not None and weight) else None
+        return plan.named_sharding(mesh, dims, weight=weight, shape=shape)
+    if shapes_tree is not None:
+        return _map_tree(one, dims_tree, shapes_tree, is_leaf=_is_dims_leaf)
+    return _map_tree(one, dims_tree, is_leaf=_is_dims_leaf)
+
+
+def distribute_tree(tree, shardings):
+    """Each full tensor of ``tree`` as a DTensor laid out by the matching
+    ``NamedSharding`` of ``shardings`` (a ``sharding_tree``)."""
+    return _map_tree(lambda x, sh: sh.distribute(x), tree, shardings,
+                     is_leaf=torch.is_tensor)
 
 
 @dataclass
@@ -68,12 +115,30 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def _average(grads, metrics: dict, group, world: int):
+    """Gradients and metrics averaged over the ``world`` ranks of
+    ``group``: one all-reduce of their f32 values, divided by ``world``,
+    each cast back to its own dtype."""
+    leaves = tree_leaves(grads)
+    names = sorted(metrics)
+    flat = torch.cat([g.reshape(-1).to(F32) for g in leaves]
+                     + [metrics[k].reshape(1).to(F32) for k in names])
+    dist.all_reduce(flat, group=group)
+    flat.div_(world)
+    out, at = [], 0
+    for g in leaves:
+        out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
+        at += g.numel()
+    avg = {k: flat[at + i].to(metrics[k].dtype) for i, k in enumerate(names)}
+    return tree_unflatten(grads, out), avg
+
+
 def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
                      remat: str = "full", use_kernels: bool = False,
                      accum_steps: int = 1,
                      device: torch.device | str = "cuda",
                      graphs: bool | None = None,
-                     plan=None) -> TrainStep:
+                     plan=None, data_group=None) -> TrainStep:
     """``accum_steps = K > 1`` splits the batch into K micro-batches along
     the batch axis (the reference's ``reshape((K, -1) + shape[1:])``),
     sums their gradients in f32 and divides by K, and applies one
@@ -88,7 +153,14 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
     The LM is built with ``graphs=False``: the sLSTM's own CUDA graph
     carries no gradients, and its loop is captured in the train step's.
     ``plan`` is the ``ShardingPlan`` the LM constrains under (``None``:
-    none)."""
+    none).
+
+    ``data_group``: the process group of the data axis.  Over W > 1
+    ranks, each holding its shard of the batch and the same params,
+    ``fn`` averages the gradients and the metrics over the group before
+    the update, as the reference's step jitted over W devices computes
+    them, and runs eagerly (``graphs=True`` raises: no collective is
+    captured).  One rank, or ``None``, is the single-rank step."""
     if use_kernels:
         raise NotImplementedError(
             "build_train_step(use_kernels=True): the hand-written kernels "
@@ -96,6 +168,11 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
             "step runs the plain paths, as the reference's does")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    world = 1 if data_group is None else dist.get_world_size(data_group)
+    if world > 1 and graphs:
+        raise NotImplementedError(
+            "build_train_step(graphs=True) over a data group of "
+            f"{world} ranks: the all-reduce is not captured in the graph")
     lm = LM(cfg, device=device, remat=remat, graphs=False, plan=plan)
     opt = opt or AdamW(moment_dtype=cfg.opt_moment_dtype)
 
@@ -134,12 +211,15 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
 
     def fn(params, opt_state, batch, lr_scale=1.0):
         grads, metrics = grads_fn(params, batch)
+        if world > 1:
+            grads, metrics = _average(grads, metrics, data_group, world)
         params, opt_state = opt.update(grads, opt_state, params,
                                        lr_scale=lr_scale)
         return params, opt_state, metrics
 
     eager = TrainStep(fn, grads_fn, lm, opt)
-    if graphs is False or (graphs is None and lm.device.type != "cuda"):
+    if graphs is False or (graphs is None and (lm.device.type != "cuda"
+                                               or world > 1)):
         return eager
     graph = None
 

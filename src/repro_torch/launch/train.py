@@ -17,16 +17,30 @@ Checkpoints are in the reference's format (``distributed/checkpoint.py``),
 so this driver resumes a run that ``repro.launch.train`` checkpointed,
 and the other way round.
 
+Data-parallel over W ranks (``torchrun``, or any initialised process
+group; gloo on the CPU, NCCL on the card)::
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --device cpu --arch smollm-135m --smoke --steps 12 --batch 4 \
+        --seq 64 --ckpt-every 0
+
 As the reference does, the driver first builds the dataflow graph of the
 run's shape and runs the HIDA compiler on it (``repro_torch.core``:
-``build_lm_graph``, then ``optimize`` with ``--fsdp``) for a mesh of one
-data and one model slot, the reference's mesh on one device; it prints
-the plan's strategy, rules and compile seconds on a ``[train] plan:``
-line and builds the LM under the plan.  On one card every constraint of
-the plan is the identity (placing tensors on a device mesh is ROADMAP
-A8), so the step computes what it computes without one.  The step runs
-the plain paths, as the reference's step trains without its kernels.  As the reference jits it
-with params and moments donated, the step on ``cuda`` is one CUDA graph
+``build_lm_graph``, then ``optimize`` with ``--fsdp``) for a mesh whose
+data axis has one slot per rank and whose model axis has one, as the
+reference sizes its data axis to its devices; it prints the plan's
+strategy, rules and compile seconds on a ``[train] plan:`` line and
+builds the LM under the plan.  With no process group the mesh is one
+slot of each, and no ``DeviceMesh`` is built; with one, the driver runs
+under ``launch.mesh.make_host_mesh``'s ``(W, 1)`` mesh (``set_mesh``).
+Params stay replicated, as the reference's driver leaves them; each
+rank takes its shard of the global batch (``ShardedLoader(n_hosts=W,
+host_id=rank)``), and the step averages the gradients and the metrics
+over the data group before AdamW.  Rank 0 writes the checkpoints; every
+rank restores from them.  The step runs the plain paths, as the
+reference's step trains without its kernels.  On one rank, as the
+reference jits it with params and moments donated, the step on ``cuda``
+is one CUDA graph
 (``launch/steps.build_train_step``), captured at the first step and
 replayed after; the graphs captured and their capture seconds are
 printed at the end.  AdamW updates params and moments in place, the
@@ -34,13 +48,19 @@ counterpart of that donation, so the graph reads and writes the tensors
 the driver made at the start: a resume copies the checkpoint into them,
 and ``CheckpointManager.save`` copies them to the host before it
 returns.  The lr schedule's value reaches the graph through its static
-scalar at every step.
+scalar at every step.  Over W > 1 ranks the step runs eagerly (no
+collective is captured), and the ``[train]`` line says so.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
+import torch.distributed as dist
+
+from .. import resolve_device
 from ..configs import get_config, list_archs
 from ..configs.base import ShapeSpec
 from ..core import MeshSpec, build_lm_graph, optimize
@@ -48,31 +68,68 @@ from ..data import ShardedLoader, SyntheticCorpus
 from ..distributed import CheckpointManager, StragglerMonitor
 from ..optim import AdamW, cosine_schedule
 from . import graphs
+from .mesh import BACKENDS, make_host_mesh, set_mesh
 from .steps import build_train_step
 
 
+def data_mesh(device: str):
+    """The ``(W, 1)`` mesh over the process group's ranks, or ``None``
+    where there is no group; under ``torchrun`` the group is initialised
+    from its environment first."""
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(BACKENDS[resolve_device(device).type])
+    if not dist.is_initialized():
+        return None
+    return make_host_mesh(device=device)
+
+
 def build(args):
+    """The config, LM, optimizer and step of ``args``; ``args.mesh`` (set
+    by ``main``; absent or ``None``: no process group) is the data
+    mesh."""
+    mesh = getattr(args, "mesh", None)
     cfg = get_config(args.arch, smoke=args.smoke)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
-    # one card: the reference sizes the data axis to its device count
-    mspec = MeshSpec((("data", 1), ("model", 1)))
+    # the reference sizes the data axis to its devices: here, the ranks
+    world = 1 if mesh is None else mesh.size(0)
+    mspec = MeshSpec((("data", world), ("model", 1)))
     t0 = time.perf_counter()
     g = build_lm_graph(cfg, shape)
     _sched, plan, report = optimize(g, mspec, fsdp=args.fsdp)
-    print(f"[train] plan: {plan.meta.get('strategy', 'hida')}, rules "
-          f"{dict(plan.rules)}, fsdp {plan.fsdp}, "
-          f"{len(report.degradations)} degradations, compiled in "
-          f"{time.perf_counter() - t0:.3f} s")
+    say(f"[train] plan: {plan.meta.get('strategy', 'hida')}, rules "
+        f"{dict(plan.rules)}, fsdp {plan.fsdp}, "
+        f"{len(report.degradations)} degradations, compiled in "
+        f"{time.perf_counter() - t0:.3f} s")
     opt = AdamW(lr=args.lr, moment_dtype=cfg.opt_moment_dtype)
     lr_fn = cosine_schedule(1.0, warmup=max(args.steps // 20, 1),
                             total=args.steps)
+    group = None if mesh is None else mesh.get_group("data")
     step = build_train_step(cfg, opt, remat=args.remat, device=args.device,
-                            plan=plan)
+                            plan=plan, data_group=group)
+    if world > 1:
+        say(f"[train] data-parallel over {world} ranks "
+            f"({dist.get_backend()}): gradients and metrics averaged over "
+            "the data group; the eager step (no CUDA graph)")
 
     def train_step(params, opt_state, batch, i):
         return step.fn(params, opt_state, batch, lr_scale=lr_fn(i))
 
     return cfg, step.lm, opt, train_step
+
+
+def _committed(ckpt: CheckpointManager, mesh) -> None:
+    """Wait for rank 0's checkpoint writes; over several ranks, no rank
+    returns before they are committed, so that a restart of any rank
+    finds them."""
+    ckpt.wait()
+    if mesh is not None and mesh.size(0) > 1:
+        dist.barrier(group=mesh.get_group("data"))
+
+
+def say(line: str) -> None:
+    """Print on rank 0 only (every rank where there is no group)."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(line, flush=True)
 
 
 def main(argv=None) -> dict:
@@ -94,10 +151,15 @@ def main(argv=None) -> dict:
                     help="cuda (default) or cpu; cuda without a card raises")
     args = ap.parse_args(argv)
 
+    mesh = args.mesh = data_mesh(args.device)
+    world, rank = (1, 0) if mesh is None else (mesh.size(0),
+                                               dist.get_rank())
     cfg, lm, opt, step_fn = build(args)
     corpus = SyntheticCorpus(cfg.vocab, seed=args.seed)
-    loader = ShardedLoader(corpus, args.batch, args.seq)
+    loader = ShardedLoader(corpus, args.batch, args.seq, n_hosts=world,
+                           host_id=rank)
     ckpt = CheckpointManager(args.ckpt_dir)
+    writer = rank == 0
     monitor = StragglerMonitor(n_hosts=1)
 
     params, _ = lm.init(args.seed)
@@ -110,36 +172,42 @@ def main(argv=None) -> dict:
         held = {"params": params, "opt": opt_state}
         graphs.copy_into(held, ckpt.restore(latest, held))
         restored = True
-        print(f"[train] resumed from step {latest}")
+        say(f"[train] resumed from step {latest}")
 
     before = graphs.stats()
     losses = []
-    for step in range(start, args.steps):
-        if step == args.simulate_preemption_at and not restored:
-            print(f"[train] simulated preemption at step {step}")
-            ckpt.wait()
-            return {"preempted_at": step, "losses": losses,
-                    "plan": lm.plan}
-        t0 = time.perf_counter()
-        batch = loader.batch_at(step)
-        params, opt_state, metrics = step_fn(params, opt_state, batch, step)
-        loss = float(metrics["loss"])
-        losses.append(loss)
-        dt = time.perf_counter() - t0
-        monitor.step({0: dt})
-        if step % 10 == 0 or step == args.steps - 1:
-            print(f"[train] step {step:5d} loss {loss:.4f} "
-                  f"({dt*1e3:.0f} ms)", flush=True)
-        if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, {"params": params, "opt": opt_state})
-    ckpt.wait()
+    with set_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        for step in range(start, args.steps):
+            if step == args.simulate_preemption_at and not restored:
+                say(f"[train] simulated preemption at step {step}")
+                _committed(ckpt, mesh)
+                return {"preempted_at": step, "losses": losses,
+                        "plan": lm.plan, "world": world}
+            t0 = time.perf_counter()
+            batch = loader.batch_at(step)
+            params, opt_state, metrics = step_fn(params, opt_state, batch,
+                                                 step)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            dt = time.perf_counter() - t0
+            monitor.step({0: dt})
+            if step % 10 == 0 or step == args.steps - 1:
+                say(f"[train] step {step:5d} loss {loss:.4f} "
+                    f"({dt*1e3:.0f} ms)")
+            if writer and args.ckpt_every \
+                    and (step + 1) % args.ckpt_every == 0:
+                ckpt.save(step + 1, {"params": params, "opt": opt_state})
+    _committed(ckpt, mesh)
     after = graphs.stats()
-    print(f"[train] graphs: {after['graphs'] - before['graphs']} captured "
-          f"in {after['capture_s'] - before['capture_s']:.2f} s")
+    say(f"[train] graphs: {after['graphs'] - before['graphs']} captured "
+        f"in {after['capture_s'] - before['capture_s']:.2f} s")
     return {"final_loss": losses[-1] if losses else None,
-            "losses": losses, "resumed_from": start, "plan": lm.plan}
+            "losses": losses, "resumed_from": start, "plan": lm.plan,
+            "world": world}
 
 
 if __name__ == "__main__":
     out = main()
-    print(f"[train] done: {out.get('final_loss')}")
+    say(f"[train] done: {out.get('final_loss')}")
+    if dist.is_initialized():
+        dist.destroy_process_group()

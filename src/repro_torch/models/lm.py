@@ -142,7 +142,7 @@ class LM:
     remat: str = "full"
     #: the ``ShardingPlan`` of ``repro_torch.core.optimize`` (or ``None``);
     #: its ``constrain`` runs at every constraint site, the identity on
-    #: one card
+    #: a plain tensor or with no ambient mesh
     plan: Any = None
 
     def __post_init__(self):
@@ -155,8 +155,9 @@ class LM:
     @property
     def constrain(self) -> Callable:
         """The plan's constraint, or the no-op without one, as in the
-        reference.  With no device mesh the plan's is the identity too;
-        placing tensors on a mesh is ROADMAP A8."""
+        reference.  The plan's redistributes a ``DTensor`` under an
+        ambient mesh (``launch/mesh.set_mesh``) and is the identity
+        otherwise (``core/plan.ShardingPlan.constrain``)."""
         if self.plan is None:
             return _noop_constrain
         return self.plan.constrain
@@ -522,6 +523,52 @@ class LM:
                                            vector_pos)
                 for j, (mix, _ffn) in enumerate(pattern)}
         return caches
+
+    def cache_dims(self) -> dict:
+        """Tree mirroring ``init_caches`` whose leaves are logical-dim
+        tuples (for plan-driven cache sharding), the reference's
+        ``LM.cache_dims``: the same ``KVCache``, ``SSMState``,
+        ``MLSTMState`` and ``SLSTMState`` leaves, with a leading
+        ``layers`` dim inside a stacked group."""
+        dims_map = {
+            "kv": ("batch", "kv_seq", "kv_heads", "d_head"),
+            "lat": ("batch", "kv_seq", "kv_lora"),
+            "pos": (),
+            "ssm_h": ("batch", "d_inner", "d_state"),
+            "conv": ("batch", "d_conv", "d_inner"),
+            "mC": ("batch", "heads", "d_head", "d_head2"),
+            "mn": ("batch", "heads", "d_head"),
+            "mm": ("batch", "heads"),
+            "sl": ("batch", "d_model"),
+        }
+        cfg = self.cfg
+        out: dict = {}
+        for gi, (pattern, repeats) in enumerate(self._groups()):
+            g: dict = {}
+            for j, (mix, _) in enumerate(pattern):
+                pre = ("layers",) if repeats > 1 else ()
+                if mix in ("attn", "xattn"):
+                    if cfg.mla is not None:
+                        leaf = KVCache(pre + dims_map["lat"], None,
+                                       pre + dims_map["pos"])
+                    else:
+                        leaf = KVCache(pre + dims_map["kv"],
+                                       pre + dims_map["kv"],
+                                       pre + dims_map["pos"])
+                elif mix == "mamba":
+                    leaf = (SSMState(pre + dims_map["ssm_h"]),
+                            pre + dims_map["conv"])
+                elif mix == "mlstm":
+                    leaf = MLSTMState(pre + dims_map["mC"],
+                                      pre + dims_map["mn"],
+                                      pre + dims_map["mm"])
+                elif mix == "slstm":
+                    leaf = SLSTMState(*([pre + dims_map["sl"]] * 4))
+                else:
+                    leaf = None
+                g[f"b{j}"] = leaf
+            out[f"group{gi}"] = g
+        return out
 
     def _block_cache(self, mix, B, S_max, repeats, vector_pos):
         cfg = self.cfg

@@ -11,8 +11,8 @@ ARCHS = jcfg.list_archs()
 
 def test_registry_lists_the_same_archs():
     assert tcfg.list_archs() == ARCHS
-    # the synthetic compiler graphs wait for the compiler slice
-    assert not hasattr(tcfg, "get_synth")
+    # the synthetic compiler graphs ride the same registry
+    assert tcfg.list_synths() == jcfg.list_synths()
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])

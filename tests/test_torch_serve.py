@@ -409,3 +409,66 @@ def test_serve_main_deepseek_on_cpu(arch):
                     "--gen-range", "3", "6", "--device", "cpu"])
     assert m["arch"] == arch and "continuous" not in m
     assert m["static"]["requests"] == 3 and m["static"]["generated"] >= 9
+
+
+DRIVER_ARGV = ["--arch", "smollm-135m", "--smoke", "--slots", "2",
+               "--requests", "3", "--prompt-len-range", "3", "10",
+               "--gen-range", "3", "6"]
+
+
+def _recording(base, seen: dict, tag: str):
+    """``base`` (a ``ContinuousBatcher``) keeping its params and report
+    in ``seen``."""
+    class Batcher(base):
+        def __init__(self, lm, params, **kw):
+            seen[f"{tag} params"] = params
+            super().__init__(lm, params, **kw)
+
+        def run(self, *a, **kw):
+            seen[tag] = super().run(*a, **kw)
+            return seen[tag]
+    return Batcher
+
+
+@pytest.fixture(scope="module")
+def reference_driver():
+    """The reference's serve driver, op by op, on ``DRIVER_ARGV``: its
+    params and its report."""
+    from repro.launch import serve as jserve
+    seen: dict = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("REPRO_PLAN_CACHE", raising=False)
+        mp.setattr(jserve, "ContinuousBatcher",
+                   _recording(JS.ContinuousBatcher, seen, "ref"))
+        with jax.disable_jit():
+            jserve.main(DRIVER_ARGV)
+    return seen
+
+
+@pytest.mark.parametrize("plain", [True, False], ids=["plain", "kernels"])
+def test_serve_main_tokens_equal_reference_driver(monkeypatch, plain,
+                                                  reference_driver):
+    """``--plain`` serves the reference's path (``use_kernels=False``):
+    with the reference driver's params bridged in, the port's driver
+    streams the greedy tokens of the reference's driver run op by op.
+    On the CPU the kernel path's plain versions stand in, so its tokens
+    are equal too; on the card ``chip_smoke.py`` phase 5 holds the
+    kernel path to the plain one up to near-ties."""
+    from repro_torch.launch import serve as tserve
+
+    seen = dict(reference_driver)
+
+    class Bridged(LM):
+        def init(self, seed=0):
+            return self.load_params(numpy_tree(seen["ref params"])), None
+
+    monkeypatch.delenv("REPRO_PLAN_CACHE", raising=False)
+    monkeypatch.setattr(tserve, "ContinuousBatcher",
+                        _recording(TS.ContinuousBatcher, seen, "port"))
+    monkeypatch.setattr(tserve, "LM", Bridged)
+    m = serve_main(DRIVER_ARGV + ["--device", "cpu"]
+                   + (["--plain"] if plain else []))
+    assert m["use_kernels"] is (not plain)
+    want = {r.rid: r.out for r in seen["ref"].requests}
+    got = {r.rid: r.out for r in seen["port"].requests}
+    assert len(got) == 3 and got == want

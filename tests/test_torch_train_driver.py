@@ -1,17 +1,21 @@
 """The port's train driver (``repro_torch.launch.train``) on the CPU: the
 loss falls, a preempted run resumes from its checkpoint on the
 uninterrupted run's trajectory, it resumes a run that the reference's
-driver checkpointed, and it needs a card unless told otherwise; and the
-batch's dtypes on their way to the device (``launch/steps._to_device``).
+driver checkpointed, and it needs a card unless told otherwise; the
+batch's dtypes on their way to the device (``launch/steps._to_device``);
+and data-parallel over two gloo ranks, against one rank over the same
+global batch.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro.launch.train import main as jtrain_main
+from repro_torch.launch import train as train_mod
 from repro_torch.launch.steps import _to_device
 from repro_torch.launch.train import main as train_main
 import torch_parity  # noqa: F401  (one torch thread per pytest worker)
+from torch_ranks import spawn
 
 #: the smoke run of the reference's resume test (tests/test_substrate.py)
 COMMON = ["--arch", "smollm-135m", "--smoke", "--steps", "10",
@@ -138,3 +142,44 @@ def test_driver_returns_its_plan(tmp_path):
                                    "0", "--ckpt-dir", str(tmp_path)])
     assert out["plan"] is not None and not out["plan"].fsdp
     assert out["plan"].meta["graph"] == "smollm-135m-smoke_cli"
+
+
+def test_two_ranks_equal_one_over_the_global_batch_and_resume(tmp_path,
+                                                               monkeypatch):
+    """Two gloo ranks, each on its shard of the global batch (4 rows,
+    2 a rank), gradients and metrics averaged over the data group: the
+    losses equal one rank's over both shards at the accumulation
+    tolerance (``tests/test_substrate.py:253``); preempted at step 3
+    (rank 0 checkpoints every 2 steps), the resumed run equals the
+    uninterrupted one bit for bit."""
+    common = ["--arch", "smollm-135m", "--smoke", "--device", "cpu",
+              "--steps", "4", "--batch", "4", "--seq", "16"]
+    full = common + ["--ckpt-every", "0", "--ckpt-dir", str(tmp_path / "a")]
+    every = common + ["--ckpt-every", "2", "--ckpt-dir", str(tmp_path / "b")]
+    ranks = spawn("train", 2, {"argvs": [
+        full, every + ["--simulate-preemption-at", "3"], every]},
+        tmp_path / "ranks")
+    assert ranks[0] == ranks[1]
+    a, pre, res = ranks[0]
+    assert a["world"] == 2 and a["mesh_axes"] == [["data", 2], ["model", 1]]
+    assert len(a["losses"]) == 4 and np.all(np.isfinite(a["losses"]))
+    assert pre["preempted_at"] == 3 and pre["losses"] == a["losses"][:3]
+    assert res["resumed_from"] == 2 and res["losses"] == a["losses"][2:]
+    # only rank 0 wrote, in the one-host format
+    assert sorted(p.name for p in (tmp_path / "b").glob("step_*/shard_*")) \
+        == ["shard_h000.npz"] * 2
+
+    class GlobalBatch(train_mod.ShardedLoader):
+        """One rank's loader yielding both ranks' shards, in rank order."""
+
+        def batch_at(self, step):
+            shards = [self.corpus.batch(step, h, self.global_batch // 2,
+                                        self.seq) for h in range(2)]
+            return {k: np.concatenate([b[k] for b in shards])
+                    for k in shards[0]}
+
+    monkeypatch.setattr(train_mod, "ShardedLoader", GlobalBatch)
+    one = train_main(full[:-1] + [str(tmp_path / "one")])
+    assert one["world"] == 1
+    np.testing.assert_allclose(a["losses"], one["losses"], rtol=2e-2,
+                               atol=2e-3)
