@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's prefill and serving paths at the full width of seven
-models, and its train step at the full width of four, with random
-weights from a seeded ``torch.Generator``:
+models, its train step at the full width of four, and the expert-parallel
+MoE, the compressed all-reduce, the GPipe runtime and the dry-run
+(phases 20-23), with random weights from a seeded ``torch.Generator``:
 smollm-135m (30 layers, d 576, 9/3 heads, head_dim 64, d_ff 1536, vocab
 49152), xlstm-125m (12 layers: 10 mLSTM, 2 sLSTM; d 768, 4 heads,
 mLSTM head dim 384, chunk 256, vocab 50304, untied head) and
@@ -233,13 +234,46 @@ d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
    run again, now through the mesh (the driver finds the process group
    and builds its ``(1, 1)`` mesh: one rank, so the step stays on its
    CUDA graph), its losses bit-equal to phase 13's, no kernel launched;
-   the group is destroyed after.  On ``[mesh]`` lines.
+   the group is destroyed after.  On ``[mesh]`` lines;
+20. ep: a new single-rank NCCL group and a ``(1, 1)`` mesh; deepseek-v2's
+   first MoE layer at full width (160 experts of d 1536, top-6, 2 shared,
+   capacity factor 1.25) from a seeded generator, x (4, 1024, 5120) bf16,
+   through ``moe_ffn_ep`` with experts over ``("model",)`` (G = 1: the
+   capacity, 192, and the slots are ``moe_ffn``'s), then again with each
+   expert's d_ff split over ``"data"`` (the psum): each time the plain
+   path bit-equal to ``moe_ffn`` (outputs and aux), its f32 gradients
+   (x, router, ``w_in``, ``w_out``) within 2e-4 of ``moe_ffn``'s, and the
+   kernel path with routing pinned (``Routing``) launching the grouped
+   matmul exactly twice, within 2e-2 of the plain path; each call's
+   device time (three means of ten calls, between CUDA events) and peak
+   memory; then both products at the EP shapes (every
+   row live) as 11, against their bounds and ``torch.bmm``; on ``[ep]``
+   lines;
+21. compress: a params-shaped f32 tree of smollm-135m from a seed,
+   compressed on the card (``optim.compression``): int8 payloads and
+   scales bit-equal to the CPU's; ``dp_allreduce_compressed`` over the
+   one-rank group equal to ``decompress(q, s)`` exactly; its time against
+   a plain all-reduce of the tree (``[compress]``);
+22. gpipe: ``core.pipeline.gpipe`` over a one-rank ``("pod",)`` stage
+   axis, S = 1, M = 8 microbatches of (16, 4096) f32, ``tanh(x @ w)``:
+   bit-equal to the sequential oracle (``[gpipe]``); the group is
+   destroyed after;
+23. dryrun: ``repro_torch.launch.dryrun.run_cell`` in a child process
+   started right after phase 1 (fake tensors over a fake process group
+   cannot share a process with NCCL, and need no card, so it runs on the
+   host beside phases 2-22): the reduced smollm train cell of the tests
+   (``ShapeSpec("t", 512, 16, "train")`` on a (4, 2) mesh) and
+   smollm-135m ``train_4k`` on the 16x16 mesh, both ``ok``; per rank
+   argument and temp bytes, FLOPs and collectives by kind (counts of the
+   port's program on fake tensors, not the card's) and each cell's
+   seconds on the host (``[dryrun]``); the child is killed if the script
+   ends first.
 
 Each path's launch counts are set to 0 just before it and read just
-after; the kernels' ``launches`` are their sums over phases 4-10 and
-14-17 (the serving runs on graphs, which replays count, the eager ones
-only checked against them); the train runs of phases 12, 13, 14 and 17
-must count none.
+after; the kernels' ``launches`` are their sums over phases 4-10,
+14-17 and 20 (the serving runs on graphs, which replays count, the eager
+ones only checked against them); the train runs of phases 12, 13, 14 and
+17 must count none.
 Each model's graphs are released before the next model is built.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -252,6 +286,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import platform
 import shutil
@@ -311,7 +346,11 @@ from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.moe import capacity_of  # noqa: E402
-from repro_torch.optim import AdamW, cosine_schedule  # noqa: E402
+from repro_torch.models.layers import ParamBuilder  # noqa: E402
+from repro_torch.core.pipeline import PipelineConfig, gpipe  # noqa: E402
+from repro_torch.optim import (AdamW, cosine_schedule,  # noqa: E402
+                               dp_allreduce_compressed, ef_compress_tree,
+                               ef_decompress_tree, init_ef_state)
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by type.
@@ -402,6 +441,18 @@ GOLDEN_SHAPE = "train_4k"
 #: phase 18's lint targets beside the ten smoke archs, and the synthetic
 #: graphs compiled (on ``SINGLE_POD``) and built only
 LINT_SYNTH, COMPILE_SYNTH, BUILD_SYNTH = "synth_1k", "synth_5k", "synth_10k"
+#: phase 20: deepseek-v2's MoE layer at prefill width, and the tolerance
+#: of the f32 gradients against moe_ffn's
+EP_B, EP_S, EP_GRAD_TOL = 4, 1024, 2e-4
+EP_GRAD_KEYS = ("w_router", "w_in", "w_out")
+#: phase 20 times each call EP_REPEATS times, each a mean of EP_ITERS
+EP_REPEATS, EP_ITERS = 3, 10
+#: phase 22's pipeline: M microbatches of (B, D) f32
+GP_M, GP_B, GP_D = 8, 16, 4096
+#: seconds phase 23 waits for its child after phase 22
+DRYRUN_WAIT = 300
+#: the dry-run child's standard output (.out) and error (.err)
+DRYRUN_LOG = ROOT / "build" / "chip_smoke" / "dryrun"
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1468,6 +1519,19 @@ def phase_serve_static(lm_k: LM, params, device: dict
 
 def main() -> int:
     device = phase_device()
+    # phase 23 needs no card: its child runs on the host beside phases
+    # 2-22 (on the card's machine it moved no host time beyond the
+    # spread between two runs)
+    dry = start_dryrun()
+    try:
+        return run_phases(device, dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+
+
+def run_phases(device: dict, dry: subprocess.Popen) -> int:
     phase_build()
     cases = phase_kernels()
 
@@ -1518,6 +1582,12 @@ def main() -> int:
     phase_compiler(device)
     phase_lint(device)
     phase_mesh(driver["a"]["losses"], device)
+    ep_paths, ep_cases = phase_ep(device)
+    paths += ep_paths
+    cases.update(ep_cases)
+    phase_compress(device)
+    phase_gpipe(device)
+    phase_dryrun(dry, device)
 
     main_path = {k: sum(p[k] for p in paths) for k in COUNTED}
     keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -1621,6 +1691,13 @@ def main() -> int:
              decode={k: cases[("gmm", JARCH, "decode", 1)][k]
                      for k in keys},
              deepseek_v2=gmm_subs(DS2, cases, sub),
+             ep={f"{('first', 'second')[n - 1]}": sub(
+                 ("gmm", "ep", n), shape)
+                 for n, shape in ((1, "(160, 192, 5120) x (160, 5120, 3072) "
+                                      "bf16 (deepseek-v2 expert-parallel "
+                                      "prefill, every row live)"),
+                                  (2, "(160, 192, 1536) x (160, 1536, 5120) "
+                                      "bf16 (the same, second product)"))},
              deepseek_v3=gmm_subs(DS3, cases, sub),
              **cases[("gmm", JARCH, "prefill", 1)]),
     ]
@@ -2659,6 +2736,320 @@ def phase_mesh(want_losses: list, device: dict) -> dict:
           f"kernel launch")
     print(f"[mesh] phase 19 took {rec['phase_s']:.1f} s")
     return rec
+
+
+def _peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _timed(fn):
+    """(fn(), seconds between synchronised host clock readings)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _ms_list(ts: list) -> str:
+    return "/".join(f"{t:.3f}" for t in ts)
+
+
+def _ep_grads(fn, x, p, ct):
+    """Gradients of ``sum(y·ct) + 0.01·lb + 0.001·z`` of ``fn(x, p)`` with
+    respect to x and the router and expert weights (f32)."""
+    leaves = [x] + [p[k] for k in EP_GRAD_KEYS]
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    y, aux = fn(leaves[0], {**p, **dict(zip(EP_GRAD_KEYS, leaves[1:]))})
+    loss = (y.float() * ct).sum() + 0.01 * aux.load_balance_loss \
+        + 0.001 * aux.router_z_loss
+    return torch.autograd.grad(loss, leaves)
+
+
+def phase_ep(device: dict) -> tuple[list, dict]:
+    """20. Expert-parallel MoE on a one-rank NCCL group and a ``(1, 1)``
+    mesh: deepseek-v2's first MoE layer at full width (160 experts of
+    d 1536, top-6, 2 shared, capacity factor 1.25), x (4, 1024, 5120)
+    bf16, experts over ``("model",)`` (G = 1, so ``moe_ffn_ep``'s capacity
+    and slots are ``moe_ffn``'s), then again with each expert's d_ff split
+    over the other axis (``tp_axis="data"``, the psum).  Each: the plain
+    path bit-equal to ``moe_ffn``; at f32 inputs its gradients within
+    ``EP_GRAD_TOL`` of ``moe_ffn``'s; the kernel path (routing pinned)
+    launching the grouped matmul exactly twice, within 2e-2 of the plain
+    path.  Then the two products at the EP shapes (every row live) timed
+    against their bounds and ``torch.bmm``.  The group stays up for
+    phases 21 and 22."""
+    t0 = time.perf_counter()
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before phase 20")
+    mesh = make_host_mesh((1, 1), device=DEVICE)
+    cfg = get_config(DS2)
+    moe = cfg.moe
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    pb = ParamBuilder(gen, device=torch.device(DEVICE))
+    moe_mod.init_moe(pb, "m", cfg)
+    p = pb.params["m"]
+    x = torch.randn((EP_B, EP_S, cfg.d_model), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    cap = max(1, math.ceil(EP_B * EP_S * moe.top_k * moe.capacity_factor
+                           / moe.n_experts))
+    if cap != capacity_of(EP_B * EP_S, moe):
+        raise AssertionError(f"EP capacity {cap} != moe_ffn's "
+                             f"{capacity_of(EP_B * EP_S, moe)}")
+
+    def noop(t, d, s=None):
+        return t
+    paths, rec = [], {"capacity": cap}
+    for tag, batch_axes, tp in (("ep", ("data",), None),
+                                ("ep_tp", (), "data")):
+        def ep(x, p, use_kernels=False):
+            return moe_mod.moe_ffn_ep(x, p, cfg, batch_axes, ("model",),
+                                      (), mesh, tp_axis=tp,
+                                      use_kernels=use_kernels)
+        routing = Routing()
+        with torch.no_grad():
+            # warm: the first call sets up NCCL's communicator and cuBLAS
+            moe_mod.moe_ffn(x, p, cfg, noop)
+            ep(x, p)
+            ep(x, p, use_kernels=True)
+            want, want_aux = moe_mod.moe_ffn(x, p, cfg, noop)
+            torch.cuda.reset_peak_memory_stats()
+            got, aux = routing.run(lambda: ep(x, p), replay=False)
+            peak_plain = _peak_gb()
+            if not (_bits_equal(got, want) and all(
+                    _bits_equal(a, b) for a, b in zip(aux, want_aux))):
+                raise AssertionError(f"{tag}: the plain expert-parallel "
+                                     "path differs from moe_ffn")
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            got_k, _ = routing.run(lambda: ep(x, p, use_kernels=True),
+                                   replay=True)
+            counts = read_counts()
+            peak_kernel = _peak_gb()
+            # each call's device time: EP_REPEATS means of EP_ITERS calls
+            # (its spread bounds what a difference between them can say)
+            t_global, t_plain, t_kernel = (
+                [time_ms(fn, iters=EP_ITERS, warmup=2)
+                 for _ in range(EP_REPEATS)]
+                for fn in (lambda: moe_mod.moe_ffn(x, p, cfg, noop),
+                           lambda: ep(x, p),
+                           lambda: ep(x, p, use_kernels=True)))
+        paths.append(counts)
+        if counts != {**{k: 0 for k in COUNTED}, "moe_gmm": 2}:
+            raise AssertionError(f"{tag}: the kernel path launched {counts}")
+        err = check_close(f"{tag} kernel path", got_k, got, torch.bfloat16)
+        del got_k, got, want
+        # f32 gradients against moe_ffn's
+        p32 = {k: v.float() for k, v in p.items()}
+        ct = torch.randn(x.shape, generator=gen, device=DEVICE)
+        g_ep = _ep_grads(ep, x.float(), p32, ct)
+        g_ref = _ep_grads(lambda x, p: moe_mod.moe_ffn(x, p, cfg, noop),
+                          x.float(), p32, ct)
+        del p32, ct
+        gerr = {}
+        for name, a, b in zip(("x",) + EP_GRAD_KEYS, g_ep, g_ref):
+            # a few experts at a time: the expert gradients take 10 GB
+            gerr[name], close = 0.0, True
+            for i in range(0, a.shape[0], 16):
+                ai, bi = a[i:i + 16], b[i:i + 16]
+                gerr[name] = max(gerr[name], (ai - bi).abs().max().item())
+                close &= torch.allclose(ai, bi, rtol=EP_GRAD_TOL,
+                                        atol=EP_GRAD_TOL)
+            if not close:
+                raise AssertionError(f"{tag}: gradient of {name} differs "
+                                     f"from moe_ffn's by {gerr[name]}")
+        del g_ep, g_ref, a, b, ai, bi
+        torch.cuda.empty_cache()
+        rec[tag] = {"global_ms": t_global, "plain_ms": t_plain,
+                    "kernel_ms": t_kernel, "peak_plain_gb": peak_plain,
+                    "peak_kernel_gb": peak_kernel, "max_abs_err": err,
+                    "grad_err": gerr}
+        print(f"[ep] {tag}: {DS2} MoE layer, x ({EP_B}, {EP_S}, "
+              f"{cfg.d_model}) bf16, experts over ('model',)"
+              + (f", d_ff over {tp!r}" if tp else "")
+              + f", capacity {cap}: plain path bit-equal to moe_ffn; "
+              f"kernel path {counts['moe_gmm']} grouped-matmul launches, "
+              f"err {err:.3g}; f32 gradients vs moe_ffn max "
+              + ", ".join(f"{k} {v:.3g}" for k, v in gerr.items())
+              + f"; device ms per call, {EP_REPEATS} means of {EP_ITERS} "
+              f"calls each: moe_ffn {_ms_list(t_global)}, plain EP "
+              f"{_ms_list(t_plain)} (peak {peak_plain:.2f} GB), kernel EP "
+              f"{_ms_list(t_kernel)} (peak {peak_kernel:.2f} GB) on "
+              f"{device['kind']} ({device['smi']})")
+    del p, x
+    torch.cuda.empty_cache()
+    gs = torch.full((moe.n_experts,), cap, dtype=torch.int32, device=DEVICE)
+    cases = {("gmm", "ep", 1): gmm_case(gs, cap, cfg.d_model,
+                                        2 * moe.d_expert, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    cases[("gmm", "ep", 2)] = gmm_case(gs, cap, moe.d_expert, cfg.d_model,
+                                       torch.bfloat16)
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[ep] phase 20 took {rec['phase_s']:.1f} s")
+    return paths, cases
+
+
+def phase_compress(device: dict) -> dict:
+    """21. Int8 error-feedback compression on the card: a params-shaped
+    f32 tree of smollm-135m from a seed; the card's int8 payloads and
+    scales bit-equal to the CPU's, and ``dp_allreduce_compressed`` over
+    the one-rank group equal to ``decompress(q, s)`` exactly; its time
+    against a plain all-reduce of the same tree."""
+    t0 = time.perf_counter()
+    shapes = LM(get_config(ARCH), device=DEVICE).param_shapes()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    grads = _map_leaves(lambda t: torch.randn(t.shape, generator=gen,
+                                              device=DEVICE), shapes)
+    state = init_ef_state(grads)
+    q, s, _ = ef_compress_tree(grads, state)
+    cq, cs, _ = ef_compress_tree(_map_leaves(lambda t: t.cpu(), grads),
+                                 init_ef_state(_map_leaves(
+                                     lambda t: t.cpu(), grads)))
+    bad = [i for i, (a, b, c, d) in enumerate(zip(
+        tree_leaves(q), tree_leaves(cq), tree_leaves(s), tree_leaves(cs)))
+        if not (_bits_equal(a.cpu(), b) and _bits_equal(c.cpu(), d))]
+    if bad:
+        raise AssertionError(f"compress: the card's payloads or scales "
+                             f"differ from the CPU's at leaves {bad}")
+    mean, _ = dp_allreduce_compressed(grads, state)
+    deq = ef_decompress_tree(q, s)
+    if not all(_bits_equal(a, b) for a, b in zip(tree_leaves(mean),
+                                                 tree_leaves(deq))):
+        raise AssertionError("dp_allreduce_compressed over one rank is "
+                             "not decompress(q, s)")
+    leaves = tree_leaves(grads)
+
+    def plain():
+        for g in leaves:
+            dist.all_reduce(g.clone())
+    rec = {"leaves": len(leaves),
+           "elements": sum(g.numel() for g in leaves),
+           "compressed_ms": time_ms(lambda: dp_allreduce_compressed(
+               grads, state), iters=5, warmup=1),
+           "plain_ms": time_ms(plain, iters=5, warmup=1)}
+    del grads, q, s, mean, deq, state, leaves
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[compress] {ARCH}'s {rec['leaves']} param-shaped f32 leaves "
+          f"({rec['elements'] / 1e6:.1f}M elements): int8 payloads and "
+          f"scales bit-equal to the CPU's; dp_allreduce_compressed over "
+          f"one rank equals decompress(q, s); it takes "
+          f"{rec['compressed_ms']:.3f} ms against {rec['plain_ms']:.3f} ms "
+          f"for a plain all_reduce of the tree on {device['kind']} "
+          f"({device['smi']}); phase 21 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def phase_gpipe(device: dict) -> dict:
+    """22. ``gpipe`` over a one-rank ``("pod",)`` stage axis: S = 1, M = 8
+    microbatches of (16, 4096) f32, ``tanh(x @ w)``; equal to the
+    sequential oracle bit for bit.  The group is destroyed after."""
+    t0 = time.perf_counter()
+    try:
+        mesh = make_host_mesh((1,), axes=("pod",), device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        ws = torch.randn((1, GP_D, GP_D), generator=gen,
+                         device=DEVICE) * GP_D ** -0.5
+        mb = torch.randn((GP_M, GP_B, GP_D), generator=gen, device=DEVICE)
+
+        def stage(w, x, sid):
+            return torch.tanh(x @ w)
+        run = gpipe(stage, PipelineConfig(1, GP_M), mesh)
+        got, run_s = _timed(lambda: run(ws, mb))
+        want = torch.stack([stage(ws[0], mb[i], 0) for i in range(GP_M)])
+        if not _bits_equal(got, want):
+            raise AssertionError(f"gpipe differs from the oracle by "
+                                 f"{(got - want).abs().max().item()}")
+    finally:
+        dist.destroy_process_group()
+    rec = {"run_s": run_s, "phase_s": time.perf_counter() - t0}
+    print(f"[gpipe] S=1, M={GP_M}, microbatches ({GP_B}, {GP_D}) f32: "
+          f"bit-equal to the sequential oracle, {run_s * 1e3:.2f} ms on "
+          f"{device['kind']}; phase 22 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+#: phase 23's child: the dry-run of two cells on fake tensors over a fake
+#: process group (which cannot share a process with NCCL)
+DRYRUN_CHILD = r"""
+import json, sys, time
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.dryrun import run_cell
+out = []
+for arch, shape, mesh in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    shape = shape if isinstance(shape, str) else ShapeSpec(*shape)
+    r = run_cell(arch, shape, mesh_axes=[tuple(a) for a in mesh] or None)
+    r["cell_s"] = time.perf_counter() - t0
+    out.append(r)
+print(json.dumps(out))
+"""
+
+
+def start_dryrun() -> subprocess.Popen:
+    """23 (start).  The port's dry-run in a child process: fake tensors
+    over a fake process group, which cannot share a process with NCCL and
+    needs no card, so it runs on the host while phases 2-22 use the card:
+    the reduced smollm train cell of the tests (``ShapeSpec("t", 512, 16,
+    "train")`` on a (4, 2) mesh) and smollm-135m ``train_4k`` on the 16x16
+    mesh."""
+    cells = [[ARCH, ["t", 512, 16, "train"], [["data", 4], ["model", 2]]],
+             [ARCH, "train_4k", []]]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    # its output goes to files, which nothing has to drain while it runs
+    DRYRUN_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with open(DRYRUN_LOG.with_suffix(".out"), "w") as out, \
+            open(DRYRUN_LOG.with_suffix(".err"), "w") as err:
+        return subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD,
+                                 json.dumps(cells)], env=env, stdout=out,
+                                stderr=err)
+
+
+def phase_dryrun(proc: subprocess.Popen, device: dict) -> list:
+    """23. The dry-run's two cells (``start_dryrun``) must be ``ok``; per
+    rank argument and temp bytes, FLOPs, collectives by kind and each
+    cell's seconds on the card machine's host."""
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=DRYRUN_WAIT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"the dry-run child ran past phase 22 by "
+                             f"{DRYRUN_WAIT} s")
+    out = DRYRUN_LOG.with_suffix(".out").read_text()
+    if proc.returncode:
+        err = DRYRUN_LOG.with_suffix(".err").read_text()
+        raise AssertionError(f"the dry-run child exited {proc.returncode}:"
+                             f"\n{err[-3000:]}")
+    recs = json.loads(out.splitlines()[-1])
+    for r in recs:
+        if r["status"] != "ok":
+            raise AssertionError(f"dry-run {r['arch']} {r['shape']} "
+                                 f"{r['mesh']}: {r['status']}: "
+                                 f"{r.get('error')}\n{r.get('traceback')}")
+        mem = r["memory_analysis"]
+        coll = r["collectives"]
+        print(f"[dryrun] {r['arch']} {r['shape']} on {r['mesh']} (fake "
+              f"tensors, {r['chips']} fake ranks): per rank arguments "
+              f"{mem['argument_size_in_bytes']} B, temp "
+              f"{mem['temp_size_in_bytes']} B, "
+              f"{r['cost_analysis']['flops']:.6g} FLOPs; collectives "
+              + ", ".join(f"{k} {coll['count_by_kind'][k]} x "
+                          f"{coll['bytes_by_kind'][k]} B"
+                          for k in sorted(coll["count_by_kind"]))
+              + f"; {r['cell_s']:.1f} s on the host of {device['kind']}")
+    print(f"[dryrun] phase 23 waited {time.perf_counter() - t0:.1f} s for "
+          f"its child after phase 22")
+    return recs
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 if __name__ == "__main__":

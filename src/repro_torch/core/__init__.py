@@ -11,8 +11,9 @@ plan cache written by either package is a hit for the other.  The cost
 model keeps the reference's per-chip constants for that reason
 (``estimator.py``, ``verify.py``).  ``generate.py`` builds the
 ``synth_*`` scale-stress graphs and ``pipeline.py`` holds the stage
-analysis; the GPipe runtime of the reference's ``pipeline.py`` needs
-collectives across ranks and is not ported yet (ROADMAP A12).
+analysis and the GPipe runtime (``PipelineConfig``, ``gpipe``: the stages
+on one axis of a ``DeviceMesh``, microbatches passed around a ring of
+point-to-point transfers).
 """
 from .analyze import (AnalysisIssue, AnalysisRule, AnalyzeReport, analyze,
                       analyze_plan, register_rule, registered_rules)

@@ -13,6 +13,18 @@ redistributes a ``DTensor`` under the ambient mesh (``set_mesh`` in
 ``repro_torch.launch.mesh``) and returns anything else as it is, as the
 reference's does outside a mesh context.
 
+Under a mesh the model meets DTensors where the reference's partitioner
+works on its own.  :func:`project` runs a weight product on each
+rank's blocks as that partitioner runs a dot, the weight laid out only
+as far as the product needs; :func:`logsumexp_and_take` reduces a
+vocab-split loss where it lies; :func:`relayout` does at a site what
+the partitioner does there (a layer's other weights gathered at their
+use, a dim made whole or mergeable, an output laid out as the residual
+it joins); :func:`layer_of` and :func:`lookup` are the indexing operations
+DTensor lays out badly or not at all, and
+:func:`local` the block an elementwise update runs on.  Without an
+ambient mesh each returns at once: ``x``, or the plain operation.
+
 ``build_plan`` converts a parallelized Structural schedule into:
 
 * ``buffer_specs`` — per Structural buffer, the mesh axes sharding each
@@ -32,6 +44,7 @@ artifacts can be diffed across perf iterations.
 """
 from __future__ import annotations
 
+import functools
 import json
 import logging
 from collections import Counter
@@ -65,6 +78,393 @@ _MESHES: list = []
 def ambient_mesh():
     """The innermost ``set_mesh`` mesh, or ``None`` outside one."""
     return _MESHES[-1] if _MESHES else None
+
+
+def relayout(x, how: str, *args):
+    """At one site of the model, what the reference's partitioner does
+    there on its own, done by hand for DTensors under the ambient mesh.
+    Without a mesh ``x`` comes back at once (no import, no work), and so
+    does a plain tensor.  ``how`` and its arguments:
+
+    * ``"gathered"`` (``skip=()``): ``x`` a tensor or a dict of them,
+      every DTensor leaf replicated over its mesh except the keys named
+      in ``skip``: a layer's weights all-gathered at their use, as the
+      reference gathers FSDP-sharded weights inside the layer;
+    * ``"whole"`` (``dim``): tensor dim ``dim`` unsharded, the other
+      placements kept: the gather an operation along it needs;
+    * ``"mergeable"`` (``start, end``): dims ``start`` to ``end`` ready to
+      be merged by a reshape: the later dims whole, the first one split
+      only where the split is even (DTensor cannot merge a split of the
+      later ones; GSPMD pads and strides);
+    * ``"like"`` (``other``): laid out as the DTensor ``other`` before
+      the two meet in an elementwise operation, so that the gradient
+      flowing back into ``x`` takes ``x``'s own layout again (a layer's
+      output joins the residual so, as sequence parallelism cuts it
+      back).
+    """
+    if not _MESHES:
+        return x
+    return _RELAYOUTS[how](x, *args)
+
+
+def _gathered(tree, skip: tuple[str, ...] = ()):
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(tree, dict):
+        return {k: v if k in skip else _gathered(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        return tree.redistribute(
+            tree.device_mesh, [Replicate()] * tree.device_mesh.ndim)
+    return tree
+
+
+def _whole(x, dim: int):
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    want = [Replicate() if getattr(p, "dim", None) == dim else p
+            for p in x.placements]
+    return x if want == list(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
+def _mergeable(x, start: int, end: int):
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    start, end = start % x.ndim, end % x.ndim
+    for d in range(start + 1, end + 1):
+        x = _whole(x, d)
+    n = 1
+    for i, p in enumerate(x.placements):
+        if getattr(p, "dim", None) == start:
+            n *= x.device_mesh.size(i)
+    return x if x.shape[start] % n == 0 else _whole(x, start)
+
+
+def _like(x, other):
+    from torch.distributed.tensor import DTensor
+    if (isinstance(x, DTensor) and isinstance(other, DTensor)
+            and x.placements != other.placements):
+        return x.redistribute(other.device_mesh, other.placements)
+    return x
+
+
+_RELAYOUTS = {"gathered": _gathered, "whole": _whole,
+              "mergeable": _mergeable, "like": _like}
+
+
+def local(t):
+    """This rank's block of a DTensor under the ambient mesh (a pending
+    sum reduced first), differentiably; anything else as it is.  An
+    elementwise update of sharded params runs on these blocks."""
+    if not _MESHES:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t
+    if any(p.is_partial() for p in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return t.to_local()
+
+
+def layer_of(t, i: int):
+    """Layer ``i`` of a stacked leaf ``t`` (``t[i]``).  Under a mesh, a
+    DTensor whose stacked dim is whole is sliced on each rank's shard,
+    its placements moved down one dim: DTensor's own ``select`` mislays a
+    ``_StridedShard`` (``placements``) in some torch versions."""
+    if not _MESHES:
+        return t[i]
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    if not isinstance(t, DTensor) or any(
+            getattr(p, "dim", None) == 0 for p in t.placements):
+        return t[i]
+    moved = [_StridedShard(p.dim - 1, split_factor=p.split_factor)
+             if isinstance(p, _StridedShard)
+             else Shard(p.dim - 1) if isinstance(p, Shard) else p
+             for p in t.placements]
+    shape = tuple(t.shape[1:])
+    return DTensor.from_local(t.to_local()[i], t.device_mesh, moved,
+                              run_check=False, shape=shape,
+                              stride=_contiguous(shape))
+
+
+def lookup(table, ids):
+    """Rows ``ids`` of the embedding ``table`` (``table[ids]``).  Under a
+    mesh a DTensor table is gathered and looked up by ``F.embedding``,
+    whose gradient DTensor lays out (it has no strategy for the scatter
+    that indexing's gradient is)."""
+    if not _MESHES:
+        return table[ids]
+    from torch.distributed.tensor import DTensor
+    from torch.nn.functional import embedding
+    table = _gathered(table)
+    if isinstance(table, DTensor):
+        return embedding(ids, table)
+    return table[ids]
+
+
+def _take(x, idx):
+    """``x.gather(-1, idx)``; for a DTensor ``x`` whose last dim is whole,
+    ``idx`` laid out as ``x`` and the gather run on each rank's blocks
+    (DTensor's own gather has a gradient, ``new_zeros`` + ``scatter_add``,
+    laid out replicated: the global batch's whole ``x`` on every rank)."""
+    if not _MESHES:
+        return x.gather(-1, idx)
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x.gather(-1, idx)
+    out = x.to_local().gather(-1, _like_on(idx, x).to_local())
+    shape = tuple(idx.shape)
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=_contiguous(shape))
+
+
+def project(x, w, k: int = 1, constrain=None, dims=None, site=None):
+    """``x @ w`` over ``x``'s last ``k`` dims and ``w``'s first ``k``,
+    shaped ``x.shape[:-k] + w.shape[k:]``, then, given ``constrain``,
+    ``constrain(out, dims, site)``.  Without a mesh, the plain product.
+
+    Under a mesh, with ``x`` or ``w`` a DTensor, the product runs on each
+    rank's blocks as the reference's partitioner runs a dot: a mesh dim
+    that splits a leading dim of ``x`` splits the output the same way
+    (``w`` whole there, its gradient a pending sum); one that splits a
+    contracted dim splits ``w``'s matching dim alike (the output a
+    pending sum); one that leaves ``x`` whole splits ``w``'s output dim
+    where the site's layout (``constrain`` being a plan's) splits it
+    there, else leaves both whole.  So ``w`` is gathered only as far as
+    that, and no product is merged over a split dim or made whole."""
+    if _MESHES:
+        from torch.distributed.tensor import DTensor
+        if isinstance(x, DTensor) or isinstance(w, DTensor):
+            out = _project_blocks(x, w, k, _site_placements(
+                constrain, dims, site))
+            return out if constrain is None else constrain(out, dims, site)
+    lead = tuple(x.shape[:-k])
+    if k > 1:
+        x = x.reshape(*lead, -1)
+    tail = tuple(w.shape[k:])
+    if w.ndim != 2 or k != 1:
+        w = w.reshape(-1, _prod(tail))
+    out = x @ w
+    if len(tail) != 1:
+        out = out.reshape(*lead, *tail)
+    return out if constrain is None else constrain(out, dims, site)
+
+
+def _prod(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+def _site_placements(constrain, dims, site):
+    """The placements ``constrain`` gives at ``site`` on the ambient
+    mesh, where it is a plan's bound ``constrain``; else ``None``."""
+    plan = getattr(constrain, "__self__", None)
+    if not isinstance(plan, ShardingPlan) or dims is None:
+        return None
+    return placements(ambient_mesh(), plan.spec_for_dims(dims, site))
+
+
+def _project_blocks(x, w, k: int, target):
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = ambient_mesh()
+    whole = [Replicate()] * mesh.ndim
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, whole, run_check=False)
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, whole, run_check=False)
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in x.placements])
+    lead = x.ndim - k
+    x_grad, w_at, w_grad, out_at = [], [], [], []
+    for i, p in enumerate(x.placements):
+        d = getattr(p, "dim", None)
+        t = target[i] if target is not None else None
+        if d is not None and d < lead:
+            # a leading dim split: the output split alike
+            x_grad.append(p)
+            w_at.append(Replicate())
+            w_grad.append(Partial())
+            out_at.append(p)
+        elif d is not None:
+            # a contracted dim split: w's matching dim split alike
+            wp = _moved_to(p, d - lead)
+            x_grad.append(p)
+            w_at.append(wp)
+            w_grad.append(wp)
+            out_at.append(Partial())
+        elif type(t) is Shard and t.dim >= lead:
+            # x whole here: w's output dim split as the site's
+            wp = Shard(t.dim - lead + k)
+            x_grad.append(Partial())
+            w_at.append(wp)
+            w_grad.append(wp)
+            out_at.append(t)
+        else:
+            x_grad.append(Replicate())
+            w_at.append(Replicate())
+            w_grad.append(Replicate())
+            out_at.append(Replicate())
+    xl = x.to_local(grad_placements=x_grad)
+    wl = w.redistribute(mesh, w_at).to_local(grad_placements=w_grad)
+    lead_l = tuple(xl.shape[:lead])
+    tail_l = tuple(wl.shape[k:])
+    out = xl.reshape(*lead_l, -1) @ wl.reshape(-1, _prod(tail_l))
+    out = out.reshape(*lead_l, *tail_l)
+    shape = tuple(x.shape[:lead]) + tuple(w.shape[k:])
+    return DTensor.from_local(out, mesh, out_at, run_check=False,
+                              shape=shape, stride=_contiguous(shape))
+
+
+def _moved_to(p, dim: int):
+    """Placement ``p`` (a ``Shard`` or ``_StridedShard``) on tensor dim
+    ``dim``."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    if isinstance(p, _StridedShard):
+        return _StridedShard(dim, split_factor=p.split_factor)
+    return Shard(dim)
+
+
+def attend(fn, q, k, v):
+    """``fn(q, k, v, q_offset)``: attention of ``q`` (B, S, H, Dh) over
+    ``k`` and ``v``, ``q_offset`` the position of q's first row.  Without
+    a mesh, ``fn(q, k, v, 0)``.  Under a mesh, with ``q`` a DTensor split
+    only on batch and seq (seq by one mesh dim), on each rank's blocks:
+    ``k`` and ``v`` split on batch as ``q`` and whole on seq (a split
+    sequence's keys gathered, as the reference's partitioner gathers
+    them), ``fn`` given the rank's first row as ``q_offset``, the output
+    laid out as ``q``; otherwise ``fn`` on the DTensors."""
+    if _MESHES:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if isinstance(q, DTensor):
+            dims = [getattr(p, "dim", None) for p in q.placements]
+            if (all(type(p) in (Shard, Replicate) for p in q.placements)
+                    and set(dims) <= {None, 0, 1} and dims.count(1) <= 1):
+                return _attend_blocks(fn, q, k, v)
+    return fn(q, k, v, 0)
+
+
+def _attend_blocks(fn, q, k, v):
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = q.device_mesh
+    kv_at, kv_grad, off = [], [], 0
+    for i, p in enumerate(q.placements):
+        d = getattr(p, "dim", None)
+        kv_at.append(p if d == 0 else Replicate())
+        # every row of a seq block reads all keys: their gradients sum
+        kv_grad.append(p if d == 0 else Partial() if d == 1 else Replicate())
+        if d == 1:
+            off = mesh.get_local_rank(i) * -(-q.shape[1] // mesh.size(i))
+
+    def block(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, kv_at).to_local(grad_placements=kv_grad)
+    out = fn(q.to_local(), block(k), block(v), off)
+    shape = tuple(q.shape[:2]) + tuple(out.shape[2:])
+    return DTensor.from_local(out, mesh, q.placements, run_check=False,
+                              shape=shape, stride=_contiguous(shape))
+
+
+def logsumexp_and_take(x, idx):
+    """``(lse, gold)`` over ``x``'s last dim: the stable logsumexp (its
+    max taken without a gradient, as the reference's ``stop_gradient``)
+    and ``x.gather(-1, idx)[..., 0]``.  Under a mesh, where one mesh dim
+    of size > 1 splits the last dim of a DTensor ``x``, both are taken on
+    each rank's block and reduced over that dim (``_vocab_split``): the
+    reference's partitioner reduces a vocab-sharded loss so, where
+    DTensor would gather the vocab, and twice more in the gradient."""
+    if _MESHES:
+        from torch.distributed.tensor import DTensor, Shard
+        if isinstance(x, DTensor):
+            last = x.ndim - 1
+            cut = [i for i, p in enumerate(x.placements)
+                   if getattr(p, "dim", None) == last]
+            if (len(cut) == 1 and type(x.placements[cut[0]]) is Shard
+                    and x.device_mesh.size(cut[0]) > 1):
+                return _vocab_split(x, idx, cut[0])
+            x = _whole(x, last)
+    m = x.amax(dim=-1, keepdim=True).detach()
+    lse = x.sub(m).exp().sum(dim=-1).log() + m[..., 0]
+    return lse, _take(x, idx)[..., 0]
+
+
+def _like_on(idx, x):
+    """``idx`` as a DTensor laid out as ``x``."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(idx, DTensor):
+        return idx.redistribute(x.device_mesh, x.placements)
+    return distribute_tensor(idx, x.device_mesh, x.placements)
+
+
+def _vocab_split(x, idx, i: int):
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    # idx: whole on the vocab's mesh dim, split as x on the others
+    keep = [Replicate() if j == i else p for j, p in enumerate(x.placements)]
+    idx = _like_on(idx, x).redistribute(mesh, keep)
+    # Shard's blocks are torch.chunk's: ceil(V / n) each, the last short
+    lo = mesh.get_local_rank(i) * -(-x.shape[-1] // mesh.size(i))
+    lse, gold = _vocab_split_fn().apply(x.to_local(), idx.to_local(), lo,
+                                        mesh.get_group(i))
+    out = [Replicate() if j == i else p for j, p in enumerate(keep)]
+    shape = tuple(x.shape[:-1])
+    return tuple(DTensor.from_local(t, mesh, out, run_check=False,
+                                    shape=shape, stride=_contiguous(shape))
+                 for t in (lse, gold))
+
+
+@functools.cache
+def _vocab_split_fn():
+    """The autograd ``Function`` of :func:`_vocab_split`, built at its
+    first use (this module imports no torch)."""
+    import torch
+    import torch.distributed as dist
+
+    class VocabSplit(torch.autograd.Function):
+        """``(lse, gold)`` of a block ``xl`` of the last dim (its first
+        column ``lo``), max, sums and gold all-reduced over ``group``;
+        the gradient in autograd's own order of the plain form."""
+
+        @staticmethod
+        def forward(ctx, xl, il, lo, group):
+            m = xl.amax(dim=-1, keepdim=True)
+            dist.all_reduce(m, dist.ReduceOp.MAX, group=group)
+            e = xl.sub(m).exp()
+            s = e.sum(dim=-1)
+            dist.all_reduce(s, group=group)
+            j = il - lo
+            hit = (j >= 0) & (j < xl.shape[-1])
+            j = j.clamp(0, max(xl.shape[-1] - 1, 0))
+            gold = torch.where(hit, xl.gather(-1, j), 0)[..., 0]
+            dist.all_reduce(gold, group=group)
+            ctx.save_for_backward(e, s, j, hit)
+            return s.log() + m[..., 0], gold
+
+        @staticmethod
+        def backward(ctx, g_lse, g_gold):
+            e, s, j, hit = ctx.saved_tensors
+            gx = (g_lse / s)[..., None] * e
+            gx = gx + torch.zeros_like(e).scatter_add(
+                -1, j, torch.where(hit, g_gold[..., None], 0))
+            return gx, None, None, None
+    return VocabSplit
+
+
+def _contiguous(shape) -> tuple:
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return tuple(stride)
 
 
 def _spec_axes(entry) -> Axes:

@@ -92,9 +92,14 @@ def mesh_spec(multi_pod: bool = False) -> MeshSpec:
 @contextlib.contextmanager
 def set_mesh(mesh):
     """Make ``mesh`` ambient: inside, ``ShardingPlan.constrain``
-    redistributes DTensors to their sites' placements on it."""
+    redistributes DTensors to their sites' placements on it, and a plain
+    tensor that meets a DTensor in an operation (positions, masks, RoPE
+    tables) is taken as replicated, as a constant is under the
+    reference's ``jit``."""
+    from torch.distributed.tensor.experimental import implicit_replication
     _MESHES.append(mesh)
     try:
-        yield mesh
+        with implicit_replication():
+            yield mesh
     finally:
         _MESHES.pop()

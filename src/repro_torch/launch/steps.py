@@ -19,6 +19,11 @@ backward pass, and their wrappers refuse a gradient.  It runs on
 ``fn`` updates params and moments in place, as the reference's jitted
 step donates them (``optim/adamw.py``).
 
+``batch_specs`` and ``input_specs`` give a cell's abstract inputs (meta
+tensors of the reference's shapes and dtypes), and ``build_serve_step``
+and ``build_prefill_step`` its serving steps under a plan on a mesh:
+the dry-run's builders (``launch/dryrun.py``).
+
 On ``cuda``, as the reference jits its step, ``fn`` captures the whole
 step (forward, remat recompute, backward, accumulation and the AdamW
 update) in one CUDA graph at its first call (``launch/graphs.TrainGraph``)
@@ -37,13 +42,15 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeSpec
 from ..models.lm import LM
 from ..optim import AdamW
 from ..optim.adamw import tree_leaves, tree_unflatten
 from .graphs import TrainGraph
+from .mesh import set_mesh
 
 F32 = torch.float32
+BF16 = torch.bfloat16
 
 
 def _is_dims_leaf(x) -> bool:
@@ -87,6 +94,60 @@ def distribute_tree(tree, shardings):
     ``NamedSharding`` of ``shardings`` (a ``sharding_tree``)."""
     return _map_tree(lambda x, sh: sh.distribute(x), tree, shardings,
                      is_leaf=torch.is_tensor)
+
+
+# --------------------------------------------------------------------------
+# Input specs: tensors on the meta device (shapes and dtypes, no memory)
+# --------------------------------------------------------------------------
+
+def batch_specs(cfg: ArchConfig, shape: ShapeSpec) -> tuple[dict, dict]:
+    """(specs, dims) for the data batch of one cell: the reference's
+    shapes and dtypes, on the meta device."""
+    B = shape.global_batch
+    S = 1 if shape.mode == "decode" else shape.seq_len
+
+    def meta(*size, dtype):
+        return torch.empty(size, dtype=dtype, device="meta")
+    specs: dict = {}
+    dims: dict = {}
+    if cfg.frontend == "audio_frames":
+        specs["frames"] = meta(B, S, cfg.d_model, dtype=BF16)
+        dims["frames"] = ("batch", "seq", "d_model")
+    else:
+        specs["tokens"] = meta(B, S, dtype=torch.int32)
+        dims["tokens"] = ("batch", "seq")
+    if cfg.frontend == "vision":
+        specs["img_embeds"] = meta(B, cfg.n_img_tokens, cfg.d_model,
+                                   dtype=BF16)
+        dims["img_embeds"] = ("batch", "kv_seq", "d_model")
+    if shape.mode == "train":
+        specs["labels"] = meta(B, S, dtype=torch.int32)
+        dims["labels"] = ("batch", "seq")
+    if shape.mode == "decode":
+        specs["pos"] = meta(dtype=torch.int32)
+        dims["pos"] = ()
+    return specs, dims
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, lm: LM | None = None
+                ) -> dict:
+    """All abstract inputs of the cell: the batch, the params and, for a
+    decode cell, the caches."""
+    lm = lm or LM(cfg, device="cpu")
+    out = {"batch": batch_specs(cfg, shape)[0],
+           "params": lm.init_abstract()[0]}
+    if shape.mode == "decode":
+        out["caches"] = lm.init_caches(shape.global_batch, shape.seq_len,
+                                       abstract=True)
+    return out
+
+
+def _on_mesh(fn, mesh):
+    """``fn`` run under ``set_mesh(mesh)``."""
+    def run(*args, **kwargs):
+        with set_mesh(mesh):
+            return fn(*args, **kwargs)
+    return run
 
 
 @dataclass
@@ -138,7 +199,7 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
                      accum_steps: int = 1,
                      device: torch.device | str = "cuda",
                      graphs: bool | None = None,
-                     plan=None, data_group=None) -> TrainStep:
+                     plan=None, data_group=None, mesh=None) -> TrainStep:
     """``accum_steps = K > 1`` splits the batch into K micro-batches along
     the batch axis (the reference's ``reshape((K, -1) + shape[1:])``),
     sums their gradients in f32 and divides by K, and applies one
@@ -153,7 +214,8 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
     The LM is built with ``graphs=False``: the sLSTM's own CUDA graph
     carries no gradients, and its loop is captured in the train step's.
     ``plan`` is the ``ShardingPlan`` the LM constrains under (``None``:
-    none).
+    none), and ``mesh`` the ``DeviceMesh`` its expert-parallel MoE path
+    runs on (``None``: none, as the drivers build it).
 
     ``data_group``: the process group of the data axis.  Over W > 1
     ranks, each holding its shard of the batch and the same params,
@@ -173,7 +235,8 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
         raise NotImplementedError(
             "build_train_step(graphs=True) over a data group of "
             f"{world} ranks: the all-reduce is not captured in the graph")
-    lm = LM(cfg, device=device, remat=remat, graphs=False, plan=plan)
+    lm = LM(cfg, device=device, remat=remat, graphs=False, plan=plan,
+            mesh=mesh)
     opt = opt or AdamW(moment_dtype=cfg.opt_moment_dtype)
 
     def loss_grads(params, leaves, batch):
@@ -231,3 +294,54 @@ def build_train_step(cfg: ArchConfig, opt: AdamW | None = None,
         return graph.run(params, opt_state, batch, lr_scale)
 
     return TrainStep(graph_fn, grads_fn, lm, opt)
+
+
+@dataclass
+class ServeStep:
+    #: (params, batch) → last-position logits, for a prefill cell
+    prefill: Callable | None
+    #: (params, batch, caches) → (logits, caches)
+    decode: Callable
+    #: (params, batch, caches) on the meta device
+    abstract_inputs: tuple
+    #: their layouts: ``sharding_tree``s to place them by
+    #: (``distribute_tree``)
+    shardings: tuple
+
+
+def build_serve_step(cfg: ArchConfig, shape: ShapeSpec, mesh, plan,
+                     use_kernels: bool = False,
+                     device: torch.device | str = "cuda") -> ServeStep:
+    """The serving steps of one cell under ``plan`` on ``mesh``: the LM's
+    ``decode_step`` (and ``prefill`` for a prefill cell), each run under
+    ``set_mesh(mesh)`` on inputs placed by ``shardings``, as the
+    reference jits them with those in-shardings."""
+    lm = LM(cfg, plan=plan, mesh=mesh, remat="none",
+            use_kernels=use_kernels, device=device)
+    params_abs, dims = lm.init_abstract()
+    bspecs, bdims = batch_specs(cfg, shape)
+    caches_abs = lm.init_caches(shape.global_batch, shape.seq_len,
+                                abstract=True)
+    shardings = (sharding_tree(dims, mesh, plan, weight=True,
+                               shapes_tree=params_abs),
+                 sharding_tree(bdims, mesh, plan),
+                 sharding_tree(lm.cache_dims(), mesh, plan))
+    prefill = (_on_mesh(lm.prefill, mesh) if shape.mode == "prefill"
+               else None)
+    return ServeStep(prefill, _on_mesh(lm.decode_step, mesh),
+                     (params_abs, bspecs, caches_abs), shardings)
+
+
+def build_prefill_step(cfg: ArchConfig, shape: ShapeSpec, mesh, plan,
+                       use_kernels: bool = False,
+                       device: torch.device | str = "cuda"):
+    """(fn, (params, batch) on the meta device, their shardings): the
+    LM's ``prefill`` under ``plan``, run under ``set_mesh(mesh)``."""
+    lm = LM(cfg, plan=plan, mesh=mesh, remat="none",
+            use_kernels=use_kernels, device=device)
+    params_abs, dims = lm.init_abstract()
+    bspecs, bdims = batch_specs(cfg, shape)
+    shardings = (sharding_tree(dims, mesh, plan, weight=True,
+                               shapes_tree=params_abs),
+                 sharding_tree(bdims, mesh, plan))
+    return _on_mesh(lm.prefill, mesh), (params_abs, bspecs), shardings

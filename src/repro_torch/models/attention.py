@@ -14,6 +14,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.plan import attend, project, relayout
 from .layers import F32, ParamBuilder, apply_rope, rope_angles
 
 Constrain = Callable[..., torch.Tensor]
@@ -74,10 +75,13 @@ _KV_BLOCK = 1024
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_block: int = _Q_BLOCK, kv_block: int = _KV_BLOCK,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Online-softmax chunked attention in plain PyTorch (the
     counterpart of ``flash_attention_jnp``): O(Sq·Dh) memory instead of
-    O(Sq·Skv), all arithmetic in f32.  GQA grouping handled natively."""
+    O(Sq·Skv), all arithmetic in f32.  GQA grouping handled natively.
+    ``q_offset`` is the position of q's first row (a rank's block of a
+    split sequence; ``core.plan.attend``)."""
     B, Sq, H, Dh = q.shape
     KVH = k.shape[2]
     G = H // KVH
@@ -87,7 +91,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_block = min(kv_block, Skv)
     nq, nk = Sq // q_block, Skv // kv_block
     if Sq % q_block or Skv % kv_block:
-        return _sdpa(q, k, v, causal_mask(Sq, Skv, window, device=q.device)
+        return _sdpa(q, k, v, causal_mask(Sq, Skv, window, q_offset,
+                                          device=q.device)
                      if causal else None)
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     dev = q.device
@@ -98,7 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ys = []
     for qi in range(nq):
         qblk = qb[qi].to(F32)
-        qpos = qi * q_block + torch.arange(q_block, device=dev)
+        qpos = q_offset + qi * q_block + torch.arange(q_block, device=dev)
         m = torch.full((B, KVH, G, q_block), -math.inf, dtype=F32,
                        device=dev)
         l = torch.zeros((B, KVH, G, q_block), dtype=F32, device=dev)
@@ -227,11 +232,11 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
     rot_dim = int(Dh * cfg.rope_pct) & ~1
 
     src = kv_x if kv_x is not None else x
-    q = (x @ p["w_q"].reshape(D, H * Dh)).reshape(B, S, H, Dh)
-    kv = (src @ p["w_kv"].reshape(D, 2 * KVH * Dh)).reshape(
-        B, src.shape[1], 2, KVH, Dh)
+    q = project(x, p["w_q"], 1, constrain,
+                ("batch", "seq", "heads", "d_head"), "q")
+    kv = project(src, p["w_kv"], 1, constrain,
+                 ("batch", "kv_seq", None, "kv_heads", "d_head"))
     k, v = kv[:, :, 0], kv[:, :, 1]
-    q = constrain(q, ("batch", "seq", "heads", "d_head"), "q")
     k = constrain(k, ("batch", "kv_seq", "kv_heads", "d_head"), "k")
     v = constrain(v, ("batch", "kv_seq", "kv_heads", "d_head"), "v")
 
@@ -252,17 +257,22 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
             from ..kernels.flash_attention import ops as fa_ops
             ctx = fa_ops.mha(q, k, v, causal=is_causal,
                              window=cfg.attn_window)
-        elif S * k.shape[1] > _FLASH_THRESHOLD:
-            ctx = flash_attention(q, k, v, causal=is_causal,
-                                  window=cfg.attn_window)
         else:
-            mask = (causal_mask(S, k.shape[1], cfg.attn_window,
-                                device=x.device) if is_causal else None)
-            ctx = _sdpa(q, k, v, mask)
+            chunked = S * k.shape[1] > _FLASH_THRESHOLD
+
+            def core(q, k, v, q_offset):
+                if chunked:
+                    return flash_attention(q, k, v, causal=is_causal,
+                                           window=cfg.attn_window,
+                                           q_offset=q_offset)
+                mask = (causal_mask(q.shape[1], k.shape[1], cfg.attn_window,
+                                    q_offset, device=x.device)
+                        if is_causal else None)
+                return _sdpa(q, k, v, mask)
+            ctx = attend(core, q, k, v)
 
     ctx = constrain(ctx, ("batch", "seq", "heads", "d_head"), "attn_ctx")
-    out = ctx.reshape(B, S, H * Dh) @ p["w_o"].reshape(H * Dh, D)
-    return out, new_cache
+    return project(ctx, p["w_o"], 2), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -367,5 +377,7 @@ def mla_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
             ctx = torch.einsum("bhst,bthv->bshv", probs, v).to(x.dtype)
 
     ctx = constrain(ctx, ("batch", "seq", "heads", "d_head"), "attn_ctx")
-    out = ctx.reshape(B, S, -1) @ p["w_o"].reshape(-1, D)
+    ctx = relayout(relayout(ctx, "mergeable", 2, 3), "mergeable", 0, 1)
+    out = ctx.reshape(B, S, -1) \
+        @ p["w_o"].reshape(-1, D)
     return out, new_cache

@@ -17,6 +17,9 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+
+from ..core.plan import logsumexp_and_take, project
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -160,7 +163,10 @@ def _inv_freq(rot_dim: int, base: float, device: torch.device
     inv_t = _INV_FREQ.get(key)
     if inv_t is None:
         inv = 1.0 / (base ** (np.arange(0, rot_dim, 2) / rot_dim))
-        inv_t = _INV_FREQ[key] = torch.tensor(inv, dtype=F32, device=device)
+        inv_t = torch.tensor(inv, dtype=F32, device=device)
+        if not is_fake(inv_t):
+            # a fake tensor (the dry-run's) lives only as long as its mode
+            _INV_FREQ[key] = inv_t
     return inv_t
 
 
@@ -202,12 +208,11 @@ def init_mlp(pb: ParamBuilder, path: str, d: int, d_ff: int,
 
 def mlp(x: torch.Tensor, p: dict, constrain=lambda t, d, s=None: t
         ) -> torch.Tensor:
-    w_in = p["w_in"]
-    h = (x @ w_in.reshape(w_in.shape[0], -1)).unflatten(-1, w_in.shape[1:])
-    h = constrain(h, ("batch", "seq", None, "d_ff"), "ffn_hidden")
+    h = project(x, p["w_in"], 1, constrain, ("batch", "seq", None, "d_ff"),
+                "ffn_hidden")
     gate, up = h[..., 0, :], h[..., 1, :]
     act = F.silu(gate.to(F32)).to(x.dtype) * up
-    return act @ p["w_out"]
+    return project(act, p["w_out"])
 
 
 # --------------------------------------------------------------------------
@@ -219,11 +224,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean token cross-entropy in f32, plus ``z_loss`` times the mean
     squared logsumexp (router-style logit regularisation).  The max is
     taken without a gradient, as the reference's ``stop_gradient``."""
-    logits = logits.to(F32)
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    shifted = logits - m
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    lse, gold = logsumexp_and_take(logits.to(F32), labels[..., None].long())
     loss = torch.mean(lse - gold)
     if z_loss:
         loss = loss + z_loss * torch.mean(torch.square(lse))

@@ -51,6 +51,7 @@ from torch.utils.checkpoint import (checkpoint,
 from .. import resolve_device
 from ..bridge import params_from_numpy
 from ..configs.base import ArchConfig
+from ..core.plan import ambient_mesh, layer_of, lookup, project, relayout
 from .attention import (KVCache, gqa_attention, init_gqa, init_mla,
                         mla_attention)
 from .layers import (BF16, F32, ParamBuilder, apply_norm, cross_entropy,
@@ -144,6 +145,9 @@ class LM:
     #: its ``constrain`` runs at every constraint site, the identity on
     #: a plain tensor or with no ambient mesh
     plan: Any = None
+    #: the ``DeviceMesh`` of the expert-parallel MoE path (``_ep``); the
+    #: drivers build the LM without one, as the reference's do
+    mesh: Any = None
 
     def __post_init__(self):
         if self.remat not in REMATS:
@@ -164,6 +168,21 @@ class LM:
 
     def _groups(self):
         return self.cfg.layer_groups()
+
+    def _ep(self):
+        """Expert-parallel routing hint: (batch_axes, expert_axes,
+        seq_axes, mesh, moe_tp) for the ``all_to_all`` dispatch path, or
+        ``None`` without a plan, a mesh or an ``experts`` rule."""
+        if self.plan is None or self.mesh is None:
+            return None
+        eaxes = tuple(self.plan.rules.get("experts", ()))
+        if not eaxes:
+            return None
+        baxes = tuple(self.plan.rules.get("batch", ()))
+        saxes = tuple(a for a in self.plan.rules.get("seq", ())
+                      if a not in baxes)
+        tp = self.plan.meta.get("moe_tp")
+        return (baxes, eaxes, saxes, self.mesh, tp)
 
     # -- init --------------------------------------------------------------------
     def _build(self, pb: ParamBuilder) -> tuple[dict, dict]:
@@ -216,9 +235,15 @@ class LM:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return self._build(ParamBuilder(gen, device=self.device))
 
+    def init_abstract(self) -> tuple[dict, dict]:
+        """(params, dims) with every param on the meta device: paths,
+        shapes and dtypes only (the reference's ``init(None,
+        abstract=True)``)."""
+        return self._build(ParamBuilder(None, device=torch.device("meta")))
+
     def param_shapes(self) -> dict:
         """The parameter tree on the meta device: paths, shapes, dtypes."""
-        return self._build(ParamBuilder(None, device=torch.device("meta")))[0]
+        return self.init_abstract()[0]
 
     def load_params(self, tree: dict) -> dict:
         """Reference params (nested dicts of numpy arrays) → this model's
@@ -226,6 +251,44 @@ class LM:
         return params_from_numpy(tree, self.device, like=self.param_shapes())
 
     # -- one block ----------------------------------------------------------------
+    def _norm(self, resid, p, merge: bool = True):
+        """The norm in front of a layer's (or the head's) projections.
+        Under a mesh (``core.plan.relayout``) it runs on ``d_model``
+        whole, its input gathered as sequence parallelism gathers it
+        before the projections (rather than reduced from their wider
+        products after, or the norm's own gradient gathered in f32);
+        with ``merge``, batch and seq too are made mergeable, for a
+        consumer whose products flatten them (``core.plan.project``
+        needs neither merged)."""
+        x = apply_norm(self.cfg.norm, relayout(resid, "whole", -1), p,
+                       self.use_kernels)
+        return relayout(x, "mergeable", 0, 1) if merge else x
+
+    def _projects(self, mix: str, ffn: str) -> tuple[bool, bool]:
+        """Whether the mixer and the FFN take their inputs through
+        ``core.plan.project`` (GQA attention, the dense MLP)."""
+        return (mix in ("attn", "xattn") and self.cfg.mla is None,
+                ffn == "dense")
+
+    @staticmethod
+    def _gather_block(bp: dict, projects: tuple[bool, bool],
+                      ffn: str) -> dict:
+        """A block's weights replicated at their use under a mesh
+        (``core.plan.relayout``; the identity without one), except those
+        that ``core.plan.project`` lays out itself, and the MoE FFN's
+        router and expert weights, which ``moe_ffn`` lays out."""
+        if ambient_mesh() is None:
+            return bp
+        mix_skip = ("w_q", "w_kv", "w_o") if projects[0] else ()
+        ffn_skip = (("w_in", "w_out") if projects[1] else
+                    ("w_router", "w_in", "w_out") if ffn == "moe" else ())
+        out = relayout({k: v for k, v in bp.items()
+                        if k not in ("mix", "ffn")}, "gathered")
+        for key, skip in (("mix", mix_skip), ("ffn", ffn_skip)):
+            if key in bp:
+                out[key] = relayout(bp[key], "gathered", skip)
+        return out
+
     def _block(self, resid, bp, mix, ffn, positions, img, cache=None,
                active=None):
         """One layer; returns (resid, aux, new_cache) with ``aux`` the
@@ -233,7 +296,9 @@ class LM:
         attends to ``img``."""
         cfg = self.cfg
         c = self.constrain
-        x = apply_norm(cfg.norm, resid, bp["norm1"], self.use_kernels)
+        projects = self._projects(mix, ffn)
+        bp = self._gather_block(bp, projects, ffn)
+        x = self._norm(resid, bp["norm1"], merge=not projects[0])
         new_cache = None
         aux = None
         if mix in ("attn", "xattn") and cfg.mla is not None:
@@ -269,16 +334,18 @@ class LM:
                                   use_kernels=self.use_kernels)
         else:
             raise NotImplementedError(f"mixer {mix!r}")
-        resid = resid + out
+        resid = resid + relayout(out, "like", resid)
         resid = c(resid, ("batch", "seq", "d_model"), "residual")
         if ffn == "dense":
-            x2 = apply_norm(cfg.norm, resid, bp["norm2"], self.use_kernels)
-            resid = resid + mlp(x2, bp["ffn"], c)
+            x2 = self._norm(resid, bp["norm2"], merge=False)
+            resid = resid + relayout(mlp(x2, bp["ffn"], c), "like",
+                                     resid)
         elif ffn == "moe":
-            x2 = apply_norm(cfg.norm, resid, bp["norm2"], self.use_kernels)
+            x2 = self._norm(resid, bp["norm2"])
             moe_out, aux = moe_ffn(x2, bp["ffn"], cfg, c,
-                                   use_kernels=self.use_kernels)
-            resid = resid + moe_out
+                                   use_kernels=self.use_kernels,
+                                   ep=self._ep())
+            resid = resid + relayout(moe_out, "like", resid)
         resid = c(resid, ("batch", "seq", "d_model"), "residual2")
         return resid, aux, new_cache
 
@@ -320,8 +387,8 @@ class LM:
                      and _records_grad(resid, gparams))
             given, per_layer = [], []
             for i in range(repeats):
-                lp = _map_cache(lambda t, i=i: t[i], gparams)
-                lc = (_map_cache(lambda t, i=i: t[i], gcaches)
+                lp = _map_cache(lambda t, i=i: layer_of(t, i), gparams)
+                lc = (_map_cache(lambda t, i=i: layer_of(t, i), gcaches)
                       if caches is not None else None)
                 if remat:
                     resid, ax = self._remat_layer(resid, lp, pattern,
@@ -356,7 +423,7 @@ class LM:
         if cfg.frontend == "audio_frames":
             resid = batch["frames"].to(BF16)
         else:
-            resid = params["embed"][batch["tokens"]].to(BF16)
+            resid = lookup(params["embed"], batch["tokens"]).to(BF16)
         resid = self.constrain(resid, ("batch", "seq", "d_model"),
                                "embed_out")
         img = (batch["img_embeds"].to(BF16) if cfg.frontend == "vision"
@@ -371,12 +438,11 @@ class LM:
 
     def _head(self, params, resid):
         cfg = self.cfg
-        x = apply_norm(cfg.norm, resid, params["final_norm"],
-                       self.use_kernels)
-        table = (params["embed"].T if cfg.tie_embeddings
-                 else params["head"])
-        logits = x @ table.to(BF16)
-        return self.constrain(logits, ("batch", "seq", "vocab"), "logits")
+        x = self._norm(resid, relayout(params["final_norm"], "gathered"),
+                       merge=False)
+        table = params["embed"].T if cfg.tie_embeddings else params["head"]
+        return project(x, table.to(BF16), 1, self.constrain,
+                       ("batch", "seq", "vocab"), "logits")
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, device=self.device).expand(B, S)
@@ -422,9 +488,9 @@ class LM:
         the shared head predicts token t+2 (labels shifted by 2,
         zero-padded; no z-loss)."""
         cfg = self.cfg
-        mp = params["mtp"]
+        mp = relayout(params["mtp"], "gathered")
         nxt = torch.nn.functional.pad(batch["labels"][:, 1:], (0, 1))
-        emb = params["embed"][nxt].to(BF16)
+        emb = lookup(params["embed"], nxt).to(BF16)
         h = torch.cat([apply_norm(cfg.norm, resid, mp["norm1"],
                                   self.use_kernels), emb], dim=-1)
         h = h @ mp["proj"]
@@ -501,8 +567,8 @@ class LM:
         return out
 
     # -- serving -------------------------------------------------------------------
-    def init_caches(self, B: int, S_max: int,
-                    vector_pos: bool = False) -> dict:
+    def init_caches(self, B: int, S_max: int, vector_pos: bool = False,
+                    abstract: bool = False) -> dict:
         """Zero caches ``{"group0": {"b0": cache}}``, each leaf with a
         leading ``layers`` axis inside a stacked group: ``KVCache(k, v,
         pos)`` with ``k``/``v`` of shape ``(B, S_max, KVH, Dh)`` for
@@ -515,12 +581,15 @@ class LM:
         do).
 
         ``vector_pos=True`` makes every position a per-slot ``(B,)``
-        vector, as the continuous-batching server needs."""
+        vector, as the continuous-batching server needs.  ``abstract=True``
+        puts every leaf on the meta device (shapes and dtypes only, the
+        dry-run's input specs)."""
+        device = torch.device("meta") if abstract else self.device
         caches: dict = {}
         for gi, (pattern, repeats) in enumerate(self._groups()):
             caches[f"group{gi}"] = {
                 f"b{j}": self._block_cache(mix, B, S_max, repeats,
-                                           vector_pos)
+                                           vector_pos, device)
                 for j, (mix, _ffn) in enumerate(pattern)}
         return caches
 
@@ -570,12 +639,12 @@ class LM:
             out[f"group{gi}"] = g
         return out
 
-    def _block_cache(self, mix, B, S_max, repeats, vector_pos):
+    def _block_cache(self, mix, B, S_max, repeats, vector_pos, device):
         cfg = self.cfg
         lead = (repeats,) if repeats > 1 else ()
 
         def z(shape, dtype=BF16):
-            return torch.zeros(lead + shape, dtype=dtype, device=self.device)
+            return torch.zeros(lead + shape, dtype=dtype, device=device)
 
         pos = z((B,) if vector_pos else (), torch.int32)
         if mix in ("attn", "xattn") and cfg.mla is not None:
@@ -583,8 +652,12 @@ class LM:
             return KVCache(z((B, S_max, m.kv_lora + m.rope_dim)), None, pos)
         if mix in ("attn", "xattn"):
             KVH, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
-            return KVCache(z((B, S_max, KVH, Dh)), z((B, S_max, KVH, Dh)),
-                           pos)
+            # as the reference: a sliding-window model's cache holds only
+            # its window past 65536 positions (long_500k), where the
+            # window is what makes the cell fit; a scalar write clamps
+            S_c = (min(S_max, cfg.attn_window)
+                   if cfg.attn_window and S_max > 65536 else S_max)
+            return KVCache(z((B, S_c, KVH, Dh)), z((B, S_c, KVH, Dh)), pos)
         if mix == "mlstm":
             H = cfg.n_heads
             Dh = cfg.xlstm.proj_factor_mlstm * cfg.d_model // H

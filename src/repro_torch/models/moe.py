@@ -2,10 +2,14 @@
 load-balance aux loss, sort-based capacity dispatch, expert SwiGLU
 products, weighted combine, optional shared experts.
 
-Counterpart of the single-card half of ``repro.models.moe`` (``moe_ffn``
-without its ``ep`` branch; the ``all_to_all`` path ``moe_ffn_ep``, which
-runs only under a plan and a mesh, is ROADMAP A9's rest), with the same
-parameter paths, shapes and dtypes.
+Counterpart of ``repro.models.moe``, with the same parameter paths,
+shapes and dtypes.  ``moe_ffn`` routes through the expert-parallel
+exchange ``moe_ffn_ep`` where its ``ep`` hint and the mesh allow it, as
+the reference does: each rank slots its own tokens per expert group,
+an ``all_to_all`` over the expert axes ships them to the experts' owners,
+which run them densely, and a second ``all_to_all`` ships the results
+home.  The mesh is a ``torch.distributed`` ``DeviceMesh``; the body runs
+through ``local_map``, the counterpart of ``shard_map``.
 
 Two departures, both where the reference's result is unspecified:
 
@@ -17,10 +21,11 @@ Two departures, both where the reference's result is unspecified:
   ``keep`` says its token was kept.  Here a dropped copy goes to one
   scratch row past the buffer, which is then cut off.
 * With ``use_kernels`` both expert products run the grouped-matmul kernel
-  (``kernels/moe_gmm``) with ``group_sizes = min(count_e, capacity)``.
-  Rows past an expert's group size are zero in the buffer and so give
-  zero outputs: the same function as the reference's einsums, which run
-  without kernels.
+  (``kernels/moe_gmm``) with ``group_sizes = min(count_e, capacity)``
+  (``G·cap``, every row, in the expert-parallel body, whose rows from
+  different sources are no one live prefix).  Rows past an expert's
+  group size are zero in the buffer and so give zero outputs: the same
+  function as the reference's einsums, which run without kernels.
 """
 from __future__ import annotations
 
@@ -28,13 +33,15 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..configs.base import ArchConfig, MoEConfig
+from ..core.plan import ambient_mesh, placements
 from .layers import F32, ParamBuilder
 
 Constrain = Callable[..., torch.Tensor]
-
 
 class MoEAux(NamedTuple):
     load_balance_loss: torch.Tensor
@@ -151,10 +158,277 @@ def _expert_matmul(x: torch.Tensor, w: torch.Tensor,
                            d_block=math.gcd(D, 512))
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, constrain: Constrain,
-            use_kernels: bool = False) -> tuple[torch.Tensor, MoEAux]:
-    """x (B,S,D) → (B,S,D) with capacity-factor dropping."""
+def mesh_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` (JAX's ``mesh.shape``)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+#: ``mesh -> {axes: (process group, order)}`` (see :func:`axes_group`),
+#: held no longer than the mesh is
+_GROUPS = WeakIdKeyDictionary()
+
+
+def axes_group(mesh, axes: tuple[str, ...]):
+    """The process group over ``axes`` of ``mesh`` that holds this rank,
+    and ``order``: ``order[g]`` is the position, in JAX's order over
+    ``axes`` (the first named major), of the rank at position ``g`` of
+    the group, which orders its ranks by mesh dim."""
+    known = _GROUPS.setdefault(mesh, {})
+    if tuple(axes) in known:
+        return known[tuple(axes)]
+    from torch.utils._python_dispatch import _disable_current_modes
+    names = tuple(mesh.mesh_dim_names)
+    in_mesh = sorted(axes, key=names.index)
+    if len(in_mesh) == 1:
+        group = mesh.get_group(in_mesh[0])
+    else:
+        sub = mesh if len(in_mesh) == len(names) else mesh[tuple(in_mesh)]
+        # the mesh's own rank tables are real tensors, whatever mode the
+        # caller runs under (the dry-run's fake tensors)
+        with _disable_current_modes():
+            group = sub._flatten().get_group()
+    sizes = mesh_sizes(mesh)
+    order = []
+    for g in range(math.prod(sizes[a] for a in in_mesh)):
+        coord, rest = {}, g
+        for a in reversed(in_mesh):
+            coord[a], rest = rest % sizes[a], rest // sizes[a]
+        j = 0
+        for a in axes:
+            j = j * sizes[a] + coord[a]
+        order.append(j)
+    known[tuple(axes)] = (group, order)
+    return group, order
+
+
+class _GradAllReduce(torch.autograd.Function):
+    """The identity forward; the gradient summed over ``group``: the
+    cotangent of a ``local_map`` input that is replicated over the
+    group's axes, as ``shard_map`` sums it there."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity forward; the gradient times ``k``: the cotangent of
+    a ``local_map`` output that is replicated over ``1 / k`` ranks, as
+    ``shard_map`` divides it."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.k = k
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.k, None
+
+
+def _exchange(t: torch.Tensor, group, order: list) -> torch.Tensor:
+    """JAX's tiled ``all_to_all`` of ``t`` (G, ...) over an expert group:
+    chunk ``i`` goes to the rank at position ``i`` in JAX's order, and
+    chunk ``i`` of the result came from it.  The group orders its ranks
+    by mesh dim, so the chunks are put in its order before the exchange
+    and back in JAX's after it."""
+    # torch.distributed.nn.functional's collectives carry gradients (the
+    # functional ones have no all-reduce that does); newer torch marks
+    # them deprecated, and that warning is left to show
+    from torch.distributed.nn.functional import all_to_all_single
+    G = t.shape[0]
+    if order != list(range(G)):
+        t = t[torch.tensor(order, device=t.device)]
+    t = t.contiguous()
+    out = all_to_all_single(torch.empty_like(t), t, group=group)
+    if order != list(range(G)):
+        inv = sorted(range(G), key=order.__getitem__)
+        out = out[torch.tensor(inv, device=out.device)]
+    return out
+
+
+def _replicated_over(mesh, used: tuple[str, ...]) -> tuple[str, ...]:
+    """The mesh axes that a spec naming ``used`` leaves replicated."""
+    return tuple(a for a in mesh.mesh_dim_names if a not in used)
+
+
+def moe_ffn_ep(x: torch.Tensor, p: dict, cfg: ArchConfig,
+               batch_axes: tuple[str, ...], expert_axes: tuple[str, ...],
+               seq_axes: tuple[str, ...] = (), mesh=None,
+               tp_axis: str | None = None, use_kernels: bool = False
+               ) -> tuple[torch.Tensor, MoEAux]:
+    """Expert-parallel MoE: the counterpart of the reference's
+    ``shard_map`` + ``all_to_all`` path.
+
+    Tokens are sharded over ``batch_axes`` × ``seq_axes``, experts over
+    ``expert_axes`` (``G`` ranks, ``E / G`` experts each; several axes
+    are read first-named major, as JAX reads them).  Each rank slots its
+    own tokens per expert at a capacity of ``max(1, ceil(T_loc·K·cf /
+    E))`` per source, ships them to the experts' owners with an
+    ``all_to_all``, runs its experts' SwiGLU densely over the ``G·cap``
+    rows each received, and ships the results home with a second one.
+    ``tp_axis`` splits each expert's d_ff over that axis (Megatron
+    style): the partial outputs are summed over it before going home.
+    The aux losses and the dropped fraction are averaged over the batch,
+    seq and expert axes.
+
+    The body runs through ``local_map`` with the reference's specs as
+    placements: DTensor inputs are localised as ``shard_map`` localises
+    them, and a plain tensor is taken as this rank's block (``x`` its
+    tokens, ``w_in``/``w_out`` its experts and d_ff slice, the router
+    whole).  Gradients follow ``shard_map``'s transpose: an output's
+    cotangent is divided by the ranks it is replicated over, an input's
+    summed over the ranks it is replicated over, so each rank's gradient
+    is its block of the global one.
+
+    With ``use_kernels`` both expert products run the grouped-matmul
+    kernel with every one of the ``G·cap`` rows live (rows from several
+    sources are no one live prefix; a zero row gives a zero output)."""
+    from torch.distributed.nn.functional import all_reduce
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
     moe = cfg.moe
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if tp_axis is not None:
+        # expert-TP columns all need the SAME tokens (each computes a
+        # d_ff slice): seq must be replicated over the tp axis
+        seq_axes = tuple(a for a in seq_axes if a != tp_axis)
+    B, S, D = x.shape
+    E, K = moe.n_experts, moe.top_k
+    sizes = mesh_sizes(mesh)
+    G = math.prod(sizes[a] for a in expert_axes)
+    E_loc = E // G
+    ep_group, order = axes_group(mesh, tuple(expert_axes))
+    tp_group = mesh.get_group(tp_axis) if tp_axis is not None else None
+    paxes = tuple(dict.fromkeys(tuple(batch_axes) + tuple(seq_axes)
+                                + tuple(expert_axes)))
+    p_group, _ = axes_group(mesh, paxes)
+    n_p = math.prod(sizes[a] for a in paxes)
+
+    bspec = tuple(batch_axes) if batch_axes else None
+    sspec = tuple(seq_axes) if seq_axes else None
+    espec = tuple(expert_axes) if len(expert_axes) > 1 else expert_axes[0]
+    x_spec = (bspec, sspec, None)
+    if tp_axis is None:
+        w_in_spec, w_out_spec = (espec,), (espec,)
+    else:
+        # (E, D, 2, Fe) column-split on Fe; (E, Fe, D) row-split on Fe
+        w_in_spec = (espec, None, None, tp_axis)
+        w_out_spec = (espec, tp_axis, None)
+    specs = (x_spec, (None, None), w_in_spec, w_out_spec)
+    used = [tuple(a for e in spec if e is not None
+                  for a in ((e,) if isinstance(e, str) else e))
+            for spec in specs]
+    grad_groups = [axes_group(mesh, rep)[0] if rep else None
+                   for rep in (_replicated_over(mesh, u) for u in used)]
+    y_scale = 1.0 / math.prod(sizes[a] for a in _replicated_over(
+        mesh, used[0]))
+    aux_scale = 1.0 / math.prod(sizes.values())
+
+    def body(x_loc, w_router, w_in, w_out):
+        x_loc, w_router, w_in, w_out = (
+            t if g is None else _GradAllReduce.apply(t, g)
+            for t, g in zip((x_loc, w_router, w_in, w_out), grad_groups))
+        Bl, Sl, _ = x_loc.shape
+        T_loc = Bl * Sl
+        xt = x_loc.reshape(T_loc, D)
+        gate, idx, aux = router_topk(xt, w_router, moe)
+        cap = max(1, math.ceil(T_loc * K * moe.capacity_factor / E))
+        eid, slot, keep = dispatch_indices(idx, E, cap)
+        payload = dispatch(xt, K, eid, slot, keep, E, cap)
+        # (E, cap, D) -> (G, E_loc, cap, D): exchange source <-> group
+        recv = _exchange(payload.view(G, E_loc, cap, D), ep_group, order)
+        toks = recv.transpose(0, 1).reshape(E_loc, G * cap, D)
+        Fl = w_in.shape[-1]
+        gs = (torch.full((E_loc,), G * cap, dtype=torch.int64,
+                         device=x_loc.device) if use_kernels else None)
+        h = _expert_matmul(toks, w_in.reshape(E_loc, D, 2 * Fl), gs) \
+            .view(E_loc, G * cap, 2, Fl)
+        act = F.silu(h[..., 0, :].to(F32)).to(x_loc.dtype) * h[..., 1, :]
+        out = _expert_matmul(act, w_out, gs)
+        if tp_group is not None:
+            # d_ff is column-split over tp_axis: w_in produced a local
+            # hidden slice, w_out contracted it -> partial sums
+            out = all_reduce(out, group=tp_group)
+        back = out.view(E_loc, G, cap, D).transpose(0, 1)
+        buf = _exchange(back, ep_group, order).reshape(E * cap, D)
+        got = buf[eid * cap + slot]                        # (T*K, D)
+        got = torch.where(keep[:, None], got, 0)
+        got = got * gate.reshape(-1)[:, None].to(x_loc.dtype)
+        y = got.reshape(T_loc, K, D).sum(dim=1).reshape(Bl, Sl, D)
+        dropped = 1.0 - torch.mean(keep.to(F32))
+        means = all_reduce(torch.stack([aux.load_balance_loss,
+                                        aux.router_z_loss, dropped]),
+                           group=p_group) / n_p
+        means = _GradScale.apply(means, aux_scale)
+        return (_GradScale.apply(y, y_scale),
+                MoEAux(means[0], means[1], means[2]))
+
+    rep = (Replicate(),) * mesh.ndim
+    fn = local_map(
+        body,
+        out_placements=(placements(mesh, x_spec), rep, rep, rep),
+        in_placements=tuple(placements(mesh, s) for s in specs),
+        device_mesh=mesh, redistribute_inputs=True)
+    y, aux = fn(x, p["w_router"], p["w_in"], p["w_out"])
+
+    if moe.n_shared:
+        ws = p["w_shared_in"]
+        hs = (x @ ws.reshape(D, -1)).unflatten(-1, ws.shape[1:])
+        acts = F.silu(hs[..., 0, :].to(F32)).to(x.dtype) * hs[..., 1, :]
+        y = y + acts @ p["w_shared_out"]
+    return y, aux
+
+
+def ep_applies(ep, x_shape, moe: MoEConfig) -> bool:
+    """Whether ``moe_ffn`` takes the expert-parallel path under the hint
+    ``ep = (batch_axes, expert_axes, seq_axes, mesh, tp_axis)``: the
+    reference's rule.  More than one expert group that divides the
+    experts, more than one position (decode never takes it), d_ff
+    divisible over the tp axis, and batch and seq divisible over their
+    shards."""
+    if ep is None:
+        return False
+    batch_axes, expert_axes, seq_axes, mesh, tp_axis = ep
+    if mesh is None or not expert_axes:
+        return False
+    B, S = x_shape[:2]
+    sizes = mesh_sizes(mesh)
+    G = 1
+    for a in expert_axes:
+        G *= sizes.get(a, 0)
+    sshard = 1
+    for a in seq_axes:
+        if a != tp_axis:
+            sshard *= sizes.get(a, 1)
+    bshard = 1
+    for a in batch_axes:
+        bshard *= sizes.get(a, 1)
+    tp_ok = tp_axis is None or moe.d_expert % sizes.get(tp_axis, 1) == 0
+    return (G > 1 and moe.n_experts % G == 0 and S > 1 and tp_ok
+            and S % max(sshard, 1) == 0 and B % max(bshard, 1) == 0)
+
+
+def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, constrain: Constrain,
+            use_kernels: bool = False, ep=None
+            ) -> tuple[torch.Tensor, MoEAux]:
+    """x (B,S,D) → (B,S,D) with capacity-factor dropping.  With ``ep``
+    given as (batch_axes, expert_axes, seq_axes, mesh, tp_axis) and a
+    mesh whose expert axes span more than one rank, dispatch goes
+    through the ``all_to_all`` path (``moe_ffn_ep``; ``ep_applies``)."""
+    moe = cfg.moe
+    if ep_applies(ep, x.shape, moe):
+        batch_axes, expert_axes, seq_axes, mesh, tp_axis = ep
+        return moe_ffn_ep(x, p, cfg, batch_axes, expert_axes, seq_axes,
+                          mesh, tp_axis=tp_axis, use_kernels=use_kernels)
     B, S, D = x.shape
     T = B * S
     E, K, Fe = moe.n_experts, moe.top_k, moe.d_expert

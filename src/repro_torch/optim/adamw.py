@@ -27,6 +27,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..core.plan import local, relayout
+
 F32 = torch.float32
 #: elements of a leaf that one slice of the update covers (at least one
 #: row along the first axis)
@@ -92,9 +94,9 @@ class AdamW:
         leaves = tree_leaves(params)
 
         def zeros():
+            # a DTensor param's moments are DTensors of its layout
             return tree_unflatten(params, [
-                torch.zeros(p.shape, dtype=self._mdt, device=p.device)
-                for p in leaves])
+                torch.zeros_like(p, dtype=self._mdt) for p in leaves])
         step = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
         return AdamWState(step, zeros(), zeros())
 
@@ -110,7 +112,8 @@ class AdamW:
         if self.grad_clip:
             gn = torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
                                 for g in gs))
-            scale = torch.clamp(self.grad_clip / (gn + 1e-9), max=1.0)
+            scale = local(torch.clamp(self.grad_clip / (gn + 1e-9),
+                                      max=1.0))
         else:
             scale = 1.0
         b1, b2 = self.b1, self.b2
@@ -120,6 +123,10 @@ class AdamW:
         for g_all, m_all, v_all, p_all in zip(
                 gs, tree_leaves(state.mu), tree_leaves(state.nu),
                 tree_leaves(params), strict=True):
+            # elementwise: under a mesh each rank updates its own blocks
+            g_all = relayout(g_all, "like", p_all)
+            g_all, m_all, v_all, p_all = (
+                local(t) for t in (g_all, m_all, v_all, p_all))
             for i in _row_slices(p_all):
                 g, m, v, p = g_all[i], m_all[i], v_all[i], p_all[i]
                 g = g.to(F32) * scale

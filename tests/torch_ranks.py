@@ -16,6 +16,16 @@ what they found to OUT.json.  Modes:
   ``slices``, computed by the test in a JAX process).
 * ``train``: ``repro_torch.launch.train.main`` on each of IN.json's
   argvs in turn (``tests/test_torch_train_driver.py``); their losses.
+* ``ep``: the expert-parallel MoE and ``LM(mesh=...)`` on a ``(2, 2)``
+  mesh against the reference's (``tests/test_torch_ep.py``).
+* ``compress``: ``dp_allreduce_compressed`` over the world
+  (``tests/test_torch_compression.py``).
+* ``gpipe``: ``gpipe`` over a ``("pod",)`` mesh of the world
+  (``tests/test_torch_gpipe.py``).
+* ``layouts``: an LM's loss and gradients on a ``(2, 2)`` mesh, its
+  params and batch placed by each of IN.json's hand-written plans (FSDP
+  on), against the same LM without a mesh
+  (``tests/test_torch_layouts.py``).
 """
 from __future__ import annotations
 
@@ -215,6 +225,241 @@ def train_body(rank: int, spec: dict) -> list:
     return runs
 
 
+def _npz_tree(data, prefix: str, dtypes: dict) -> dict:
+    """The arrays of ``data`` under ``prefix/`` as a nested dict of CPU
+    tensors, each in the reference's dtype (``dtypes``; stored as f32,
+    which holds bf16 values exactly)."""
+    tree: dict = {}
+    for key in data.files:
+        if not key.startswith(prefix + "/"):
+            continue
+        t = torch.from_numpy(data[key])
+        if dtypes.get(key) == "bfloat16":
+            t = t.to(torch.bfloat16)
+        node = tree
+        *path, leaf = key[len(prefix) + 1:].split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return tree
+
+
+def ep_body(rank: int, spec: dict) -> dict:
+    """The expert-parallel MoE and ``LM(mesh=...)`` on a ``(2, 2)`` mesh
+    (``tests/test_torch_ep.py``): per layout of ``spec["layouts"]``, the
+    outputs and gradients with DTensor inputs (rank 0 saves them whole to
+    ``spec["out"]``) and with this rank's plain blocks (held here to the
+    reference's blocks); then the LM's loss and prefill logits with its
+    params and batch placed by the plan, and without a mesh."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import MeshSpec, ShardingPlan
+    from repro_torch.core.plan import NamedSharding, placements
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.launch.steps import distribute_tree, sharding_tree
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.lm import LM
+
+    ref = np.load(spec["npz"])
+    cfg = get_config("deepseek-v2-236b", smoke=True)
+    object.__setattr__(cfg.moe, "capacity_factor", spec["cf"])
+    mesh = make_host_mesh((2, 2), device="cpu")
+    p = _npz_tree(ref, "moe", spec["dtypes"])
+    x = torch.from_numpy(ref["x"])
+    ct = torch.from_numpy(ref["ct"])
+    out: dict = {}
+    checked, bad = [], []
+
+    def place(t, sp):
+        return NamedSharding(mesh, sp, placements(mesh, sp)).distribute(t)
+
+    def check(key, got, want, rtol):
+        checked.append(key)
+        if not torch.allclose(got.float(), want.float(), rtol=rtol,
+                              atol=rtol):
+            err = (got.float() - want.float()).abs().max().item()
+            bad.append(f"{key}: max abs err {err}")
+
+    def noop(t, d, s=None):
+        return t
+
+    names = ("w_router", "w_in", "w_out")
+    for i, (b, e, tp) in enumerate(spec["layouts"]):
+        b, e = tuple(b), tuple(e)
+        es = e if len(e) > 1 else e[0]
+        ws = {"w_router": (), "w_shared_in": (), "w_shared_out": (),
+              "w_in": (es, None, None, tp) if tp else (es,),
+              "w_out": (es, tp, None) if tp else (es,)}
+        xs = (b,)
+        args = (cfg, b, e, (), mesh)
+        # bf16 forward: DTensor inputs, then this rank's plain blocks
+        dx = place(x.to(torch.bfloat16), xs)
+        dp = {k: place(v, ws[k]) for k, v in p.items()}
+        y, aux = tmoe.moe_ffn_ep(dx, dp, *args, tp_axis=tp)
+        out[f"{i}/dtensor/y"] = y.full_tensor().float()
+        out[f"{i}/dtensor/aux"] = torch.stack([a.full_tensor()
+                                               for a in aux]).float()
+        out[f"{i}/global/y"] = tmoe.moe_ffn(x.to(torch.bfloat16), p, cfg,
+                                            noop)[0].float()
+        yl, auxl = tmoe.moe_ffn_ep(dx.to_local(), {
+            k: v.to_local() for k, v in dp.items()}, *args, tp_axis=tp)
+        check(f"{i}/plain/y", yl,
+              place(torch.from_numpy(ref[f"{i}/y"]), xs).to_local(), 2e-2)
+        check(f"{i}/plain/aux", torch.stack(list(auxl)),
+              torch.from_numpy(ref[f"{i}/aux"]), 2e-4)
+        # f32 gradients of sum(y * ct) + 0.01 lb + 0.001 z
+        p32 = {k: v.float() for k, v in p.items()}
+        leaves = [place(x, xs)] + [place(p32[k], ws[k]) for k in names]
+        for t in leaves:
+            t.requires_grad_()
+        y, aux = tmoe.moe_ffn_ep(leaves[0], {**{k: place(v, ws[k]) for
+                                                k, v in p32.items()},
+                                             **dict(zip(names, leaves[1:]))},
+                                 *args, tp_axis=tp)
+        loss = (y * place(ct, xs)).sum() + 0.01 * aux.load_balance_loss \
+            + 0.001 * aux.router_z_loss
+        grads = torch.autograd.grad(loss, leaves)
+        for name, g in zip(("x",) + names, grads):
+            out[f"{i}/g/{name}"] = g.full_tensor()
+        local = [t.detach().to_local().requires_grad_() for t in leaves]
+        y, aux = tmoe.moe_ffn_ep(local[0], {
+            **{k: place(v, ws[k]).to_local() for k, v in p32.items()},
+            **dict(zip(names, local[1:]))}, *args, tp_axis=tp)
+        grads = torch.autograd.grad(
+            [y, aux.load_balance_loss, aux.router_z_loss], local,
+            grad_outputs=[place(ct, xs).to_local(), torch.tensor(0.01),
+                          torch.tensor(0.001)])
+        for name, g, sp in zip(("x",) + names, grads,
+                               (xs,) + tuple(ws[k] for k in names)):
+            want = place(torch.from_numpy(ref[f"{i}/g/{name}"]), sp)
+            check(f"{i}/grad/{name}", g, want.to_local(), 2e-4)
+
+    # the LM: params and batch placed by a hand-written plan
+    calls = []
+    orig = tmoe.moe_ffn_ep
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+    tmoe.moe_ffn_ep = counted
+    try:
+        plan = ShardingPlan(MeshSpec((("data", 2), ("model", 2))),
+                            rules={k: tuple(v)
+                                   for k, v in spec["rules"].items()})
+        lm = LM(cfg, plan=plan, mesh=mesh, device="cpu", remat="none")
+        _, dims = lm.init_abstract()
+        params = _npz_tree(ref, "lmp", spec["dtypes"])
+        toks = torch.from_numpy(ref["lm/tokens"]).long()
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        dparams = distribute_tree(params, sharding_tree(
+            dims, mesh, plan, weight=True, shapes_tree=params))
+        dbatch = distribute_tree(batch, sharding_tree(
+            {"tokens": ("batch", "seq"), "labels": ("batch", "seq")},
+            mesh, plan))
+        with set_mesh(mesh):
+            loss, _ = lm.loss_fn(dparams, dbatch)
+            logits = lm.prefill(dparams, {"tokens": dbatch["tokens"]})
+        out["lm/loss"] = loss.full_tensor()
+        out["lm/logits"] = logits.full_tensor().float()
+        plain = LM(cfg, device="cpu", remat="none")
+        out["lm/loss_plain"] = plain.loss_fn(params, batch)[0]
+        out["lm/logits_plain"] = plain.prefill(
+            params, {"tokens": batch["tokens"]}).float()
+    finally:
+        tmoe.moe_ffn_ep = orig
+    if rank == 0:
+        np.savez(spec["out"], **{k: v.detach().numpy()
+                                 for k, v in out.items()})
+    return {"checked": checked, "bad": bad, "ep_calls": len(calls)}
+
+
+def compress_body(rank: int, spec: dict) -> dict:
+    """``dp_allreduce_compressed`` over the world (``tests/
+    test_torch_compression.py``): this rank's gradients and residuals
+    are slice ``rank`` of IN's stacked arrays; returns the mean and the
+    new residuals."""
+    from repro_torch.optim import EFState, dp_allreduce_compressed
+    grads = {k: torch.tensor(v[rank], dtype=torch.float32)
+             for k, v in spec["grads"].items()}
+    res = {k: torch.tensor(v[rank], dtype=torch.float32)
+           for k, v in spec["residual"].items()}
+    mean, state = dp_allreduce_compressed(grads, EFState(res))
+    return {"mean": {k: v.tolist() for k, v in mean.items()},
+            "residual": {k: v.tolist() for k, v in state.residual.items()}}
+
+
+def gpipe_body(rank: int, spec: dict) -> list:
+    """``gpipe`` over a ``("pod",)`` mesh of the world's ranks
+    (``tests/test_torch_gpipe.py``): ``tanh(x @ w)`` per stage on IN's
+    stacked weights and microbatches; returns the outputs."""
+    from repro_torch.core.pipeline import PipelineConfig, gpipe
+    from repro_torch.launch.mesh import make_host_mesh
+    world = dist.get_world_size()
+    mesh = make_host_mesh((world,), axes=("pod",), device="cpu")
+    ws = torch.tensor(spec["ws"], dtype=torch.float32)
+    mb = torch.tensor(spec["mb"], dtype=torch.float32)
+    run = gpipe(lambda w, x, sid: torch.tanh(x @ w),
+                PipelineConfig(world, mb.shape[0]), mesh, None, None)
+    return run(ws, mb).tolist()
+
+
+def layouts_body(rank: int, spec: dict) -> dict:
+    """``spec["arch"]``'s smoke LM (remat ``spec["remat"]``): the loss and
+    every param's gradient of one seeded batch without a mesh, then on a
+    ``(2, 2)`` mesh under each plan of ``spec["plans"]``; per plan, the
+    loss's absolute error and the largest gradient error relative to
+    that leaf's largest plain gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import MeshSpec, ShardingPlan
+    from repro_torch.launch.mesh import make_host_mesh, set_mesh
+    from repro_torch.launch.steps import distribute_tree, sharding_tree
+    from repro_torch.models.lm import LM
+
+    cfg = get_config(spec["arch"], smoke=True)
+    mesh = make_host_mesh((2, 2), device="cpu")
+    plain = LM(cfg, device="cpu", remat=spec["remat"])
+    params, dims = plain.init(seed=0)
+    gen = torch.Generator().manual_seed(1)
+    B, S = spec["batch"], spec["seq"]
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    is_leaf = torch.is_tensor
+    leaves = [t.requires_grad_() for _, t in flatten(params, is_leaf)]
+    loss_p, _ = plain.loss_fn(params, batch)
+    grads_p = torch.autograd.grad(loss_p, leaves)
+    out = {}
+    for name, rules in spec["plans"].items():
+        plan = ShardingPlan(MeshSpec((("data", 2), ("model", 2))),
+                            rules={k: tuple(v) for k, v in rules.items()},
+                            fsdp=True)
+        lm = LM(cfg, plan=plan, device="cpu", remat=spec["remat"])
+        fixed = _rebuild_detached(params)
+        dparams = distribute_tree(fixed, sharding_tree(
+            dims, mesh, plan, weight=True, shapes_tree=fixed))
+        dbatch = distribute_tree(batch, sharding_tree(
+            {"tokens": ("batch", "seq"), "labels": ("batch", "seq")},
+            mesh, plan))
+        dleaves = [t.requires_grad_() for _, t in flatten(dparams, is_leaf)]
+        with set_mesh(mesh):
+            loss, _ = lm.loss_fn(dparams, dbatch)
+            grads = torch.autograd.grad(loss, dleaves)
+        rel = 0.0
+        for g, gp in zip(grads, grads_p, strict=True):
+            diff = (g.full_tensor().float() - gp.float()).abs().max()
+            rel = max(rel, (diff / gp.float().abs().max().clamp(
+                min=1e-12)).item())
+        out[name] = {"loss": loss.full_tensor().item(),
+                     "loss_plain": loss_p.item(), "grad_rel": rel}
+    return out
+
+
+def _rebuild_detached(tree):
+    if isinstance(tree, dict):
+        return {k: _rebuild_detached(v) for k, v in tree.items()}
+    return tree.detach()
+
+
 def main() -> None:
     mode, rank, world, rdv, src, dst = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -222,7 +467,9 @@ def main() -> None:
                             rank=rank, world_size=world)
     try:
         spec = json.loads(Path(src).read_text())
-        body = {"mesh": mesh_body, "train": train_body}[mode]
+        body = {"mesh": mesh_body, "train": train_body, "ep": ep_body,
+                "compress": compress_body, "gpipe": gpipe_body,
+                "layouts": layouts_body}[mode]
         result = body(rank, spec)
     finally:
         dist.destroy_process_group()
