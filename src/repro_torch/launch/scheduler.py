@@ -34,6 +34,23 @@ tokens do not depend on its co-tenants and the whole trace replays from
 ``seed``.  The draws are not JAX's: sampled tokens are held to this
 package's own offline decode, greedy tokens to the reference's.
 
+Spans (``launch/spans.py``): each decode step is a ``serve.step`` tiled
+by three children, ``serve.launch`` (the inputs copied into the graph's
+static buffers and the replay, or the eager step), ``serve.logits`` (the
+host blocked until the step's logits are in host memory) and
+``serve.sample`` (sampling every row, positions and tokens, evictions).
+The batcher's admission round is ``serve.admit``; inside it each group's
+replay loop is ``serve.side_steps`` (counting its side steps) and its
+install ``serve.install`` (the scatter into the slot caches, the first
+tokens' copy and their sampling).  ``run_static``'s prompt steps, first
+logits and first tokens are ``serve.prompt``.  The report's
+``prefill_s`` and ``decode_s`` are those spans' sums over the run:
+``serve.admit`` (or ``serve.prompt``), and ``serve.launch`` +
+``serve.logits`` in the batcher, ``serve.step`` on the static path
+(sampling included).  ``Request.stall_s`` holds the admission time that
+passed while the request was running, between its first token and its
+last.
+
 Frontends: an audio-frames request has no prompt (``prompt=None``); its
 input at every position, prompt and generated alike, is a frame drawn for
 (request, position), and a vision request carries one image drawn for the
@@ -52,7 +69,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import spans
 from .graphs import step_graph
+from .spans import span
 
 __all__ = ["Request", "ServeReport", "ContinuousBatcher", "decode_offline",
            "run_static", "prefill_bucket"]
@@ -84,19 +103,15 @@ class Request:
     #: generated token ids, in order.
     out: list[int] = field(default_factory=list)
     t_submit: float = 0.0
-    t_admit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
+    #: seconds of admission rounds between ``t_first`` and ``t_done``
+    stall_s: float = 0.0
     finish: str = ""        # "eos" | "length" | "budget"
 
     @property
     def latency_s(self) -> float:
         return self.t_done - self.t_submit
-
-    @property
-    def ttft_s(self) -> float:
-        """Submit → first generated token."""
-        return self.t_first - self.t_submit
 
 
 @dataclass
@@ -109,6 +124,8 @@ class ServeReport:
     wall_s: float = 0.0
     occupancy: float = 0.0      # mean active-slot fraction per decode step
     slots: int = 0
+    #: span name -> (count, seconds) over the run (``spans.since``)
+    spans: dict = field(default_factory=dict)
 
     @property
     def tok_per_s(self) -> float:
@@ -117,6 +134,18 @@ class ServeReport:
     @property
     def decode_tok_per_s(self) -> float:
         return self.generated / self.decode_s if self.decode_s else 0.0
+
+    @property
+    def stall_share(self) -> float:
+        """The share of the requests' time from first token to last that
+        admission rounds held them."""
+        run = sum(r.t_done - r.t_first for r in self.requests)
+        return sum(r.stall_s for r in self.requests) / run if run else 0.0
+
+    def ms_per(self, name: str) -> float:
+        """Milliseconds a count of span ``name`` (0 where it never ran)."""
+        n, s = self.spans.get(name, (0, 0.0))
+        return 1e3 * s / n if n else 0.0
 
     def latency_percentiles(self) -> dict[str, float]:
         lats = sorted(r.latency_s for r in self.requests)
@@ -137,7 +166,9 @@ class ServeReport:
                 "prefill_s": self.prefill_s, "decode_s": self.decode_s,
                 "wall_s": self.wall_s, "occupancy": self.occupancy,
                 "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
-                "slots": self.slots}
+                "slots": self.slots, "stall_share": self.stall_share,
+                "spans": {k: {"count": n, "s": s}
+                          for k, (n, s) in self.spans.items()}}
 
 
 def _draw_seed(seed: int, rid: int, pos: int) -> int:
@@ -297,7 +328,6 @@ class ContinuousBatcher:
         its slot, then sample each request's first token."""
         lm, dev = self.lm, self.device
         k = len(pairs)
-        now = time.perf_counter()
         lengths = np.array([r.prompt_len for _, r in pairs], np.int64)
         steps = int(lengths.max())
         # the inputs of every step, staged on the device once; each step
@@ -312,8 +342,6 @@ class ContinuousBatcher:
             xs = torch.zeros((steps, k, 1), dtype=torch.int64)
             for i, (_slot, req) in enumerate(pairs):
                 xs[:req.prompt_len, i, 0] = torch.as_tensor(req.prompt)
-        for _slot, req in pairs:
-            req.t_admit = now
         xs = xs.to(dev)
         key = "frames" if self.audio else "tokens"
         img = (torch.stack([_bf16(self.draws.image_of(r.rid), dev)
@@ -347,39 +375,42 @@ class ContinuousBatcher:
         # each request's logits at its last prompt position, in a buffer
         # of their own (a graph's logits are overwritten by its next run)
         last = None
-        for t in range(steps):
-            row = step(t)[:, -1]
-            if t == 0:
-                last = row.clone()
-                continue
-            for i in np.flatnonzero(lengths - 1 == t):
-                last[int(i)] = row[int(i)]
-        # install every leaf of each block's cache (KVCache, MLSTMState,
-        # SLSTMState): the batch axis is 0, or 1 inside a stacked group
-        # whose leading axis is layers.
-        slot_vec = torch.as_tensor([s for s, _ in pairs], device=dev)
-        for gi, (_pattern, repeats) in enumerate(lm._groups()):
-            g = f"group{gi}"
-            for b, big in self.caches[g].items():
-                for dst, src in zip(big, small[g][b]):
-                    if repeats > 1:
-                        dst[:, slot_vec] = src
-                    else:
-                        dst[slot_vec] = src
-        if img is not None:
-            self.img[slot_vec] = img
-        last_np = last.float().cpu().numpy()
-        t_first = time.perf_counter()
-        for i, (slot, req) in enumerate(pairs):
-            tok = _sample(last_np[i], self.seed, req.rid, req.prompt_len - 1,
-                          req.temperature)
-            req.out.append(tok)
-            req.t_first = t_first
-            self.pos[slot] = req.prompt_len
-            self.active[slot] = True
-            self.tokens[slot, 0] = tok
-            self.slot_req[slot] = req
-            self._maybe_finish(slot, tok)
+        rids = ",".join(str(r.rid) for _, r in pairs)
+        with span("serve.side_steps", n=steps, rids=rids):
+            for t in range(steps):
+                row = step(t)[:, -1]
+                if t == 0:
+                    last = row.clone()
+                    continue
+                for i in np.flatnonzero(lengths - 1 == t):
+                    last[int(i)] = row[int(i)]
+        with span("serve.install", rids=rids):
+            # install every leaf of each block's cache (KVCache,
+            # MLSTMState, SLSTMState): the batch axis is 0, or 1 inside a
+            # stacked group whose leading axis is layers.
+            slot_vec = torch.as_tensor([s for s, _ in pairs], device=dev)
+            for gi, (_pattern, repeats) in enumerate(lm._groups()):
+                g = f"group{gi}"
+                for b, big in self.caches[g].items():
+                    for dst, src in zip(big, small[g][b]):
+                        if repeats > 1:
+                            dst[:, slot_vec] = src
+                        else:
+                            dst[slot_vec] = src
+            if img is not None:
+                self.img[slot_vec] = img
+            last_np = last.float().cpu().numpy()
+            t_first = time.perf_counter()
+            for i, (slot, req) in enumerate(pairs):
+                tok = _sample(last_np[i], self.seed, req.rid,
+                              req.prompt_len - 1, req.temperature)
+                req.out.append(tok)
+                req.t_first = t_first
+                self.pos[slot] = req.prompt_len
+                self.active[slot] = True
+                self.tokens[slot, 0] = tok
+                self.slot_req[slot] = req
+                self._maybe_finish(slot, tok)
 
     def _evict(self, slot: int, finish: str) -> None:
         req = self.slot_req[slot]
@@ -428,53 +459,42 @@ class ContinuousBatcher:
         submitted request has finished.  Returns the serving report;
         per-request tokens live on the :class:`Request` objects."""
         rep = ServeReport(slots=self.slots)
+        before = spans.sums()
         occ_sum = 0.0
         t_start = time.perf_counter()
         budget = max_steps if max_steps is not None else (
             sum(r.max_new for r in self.queue) + len(self.queue) + 64)
         while self.queue or self.active.any():
-            # admit: fill the free slots from the queue, grouped by
-            # prefill bucket so each group is one batched side step.
-            if self.queue:
-                t0 = time.perf_counter()
-                groups: dict[int, list[tuple[int, Request]]] = {}
-                for slot in range(self.slots):
-                    if not self.queue:
-                        break
-                    if not self.active[slot]:
-                        req = self.queue.popleft()
-                        b = prefill_bucket(req.prompt_len,
-                                           self.prefill_min)
-                        groups.setdefault(b, []).append((slot, req))
-                        rep.requests.append(req)
-                for _b, pairs in sorted(groups.items()):
-                    self._admit_group(pairs)
-                if groups:
-                    rep.prefill_s += time.perf_counter() - t0
-            if not self.active.any():
+            if self.queue and not self.active.all():
+                self._admit(rep)
+            live = int(self.active.sum())
+            if not live:
                 continue    # every admitted request finished at token 0
             # one decode step over the whole batch
-            t0 = time.perf_counter()
-            if self._slot_graph is not None:
-                logits = self._slot_graph.run(pos=self.pos, active=self.active,
-                                              **self._inputs())
-            else:
-                logits, self.caches = self.lm.decode_step(
-                    self.params, self._decode_batch(), self.caches)
-            logits_np = _host_rows(logits)
-            rep.decode_s += time.perf_counter() - t0
-            rep.steps += 1
-            occ_sum += float(self.active.sum()) / self.slots
-            for slot in range(self.slots):
-                if not self.active[slot]:
-                    continue
-                req = self.slot_req[slot]
-                tok = _sample(logits_np[slot], self.seed, req.rid,
-                              int(self.pos[slot]), req.temperature)
-                req.out.append(tok)
-                self.pos[slot] += 1
-                self.tokens[slot, 0] = tok
-                self._maybe_finish(slot, tok)
+            with span("serve.step", rows=live):
+                with span("serve.launch"):
+                    if self._slot_graph is not None:
+                        logits = self._slot_graph.run(
+                            pos=self.pos, active=self.active,
+                            **self._inputs())
+                    else:
+                        logits, self.caches = self.lm.decode_step(
+                            self.params, self._decode_batch(), self.caches)
+                with span("serve.logits"):
+                    logits_np = _host_rows(logits)
+                with span("serve.sample"):
+                    rep.steps += 1
+                    occ_sum += live / self.slots
+                    for slot in range(self.slots):
+                        if not self.active[slot]:
+                            continue
+                        req = self.slot_req[slot]
+                        tok = _sample(logits_np[slot], self.seed, req.rid,
+                                      int(self.pos[slot]), req.temperature)
+                        req.out.append(tok)
+                        self.pos[slot] += 1
+                        self.tokens[slot, 0] = tok
+                        self._maybe_finish(slot, tok)
             if rep.steps >= budget:
                 for slot in range(self.slots):
                     if self.active[slot]:
@@ -483,7 +503,34 @@ class ContinuousBatcher:
         rep.wall_s = time.perf_counter() - t_start
         rep.generated = sum(len(r.out) for r in rep.requests)
         rep.occupancy = occ_sum / rep.steps if rep.steps else 0.0
+        rep.spans = spans.since(before)
+        rep.prefill_s = rep.spans.get("serve.admit", (0, 0.0))[1]
+        rep.decode_s = sum(rep.spans.get(k, (0, 0.0))[1]
+                           for k in ("serve.launch", "serve.logits"))
         return rep
+
+    def _admit(self, rep: ServeReport) -> None:
+        """One admission round: fill the free slots from the queue,
+        grouped by prefill bucket so each group is one batched side step;
+        then charge the round's time to every request it held running."""
+        width = min(len(self.queue), int((~self.active).sum()))
+        with span("serve.admit", width=width):
+            t0 = time.perf_counter()
+            groups: dict[int, list[tuple[int, Request]]] = {}
+            for slot in range(self.slots):
+                if not self.queue:
+                    break
+                if not self.active[slot]:
+                    req = self.queue.popleft()
+                    b = prefill_bucket(req.prompt_len, self.prefill_min)
+                    groups.setdefault(b, []).append((slot, req))
+                    rep.requests.append(req)
+            for _b, pairs in sorted(groups.items()):
+                self._admit_group(pairs)
+            t1 = time.perf_counter()
+            for slot in np.flatnonzero(self.active):
+                req = self.slot_req[slot]
+                req.stall_s += t1 - max(t0, req.t_first)
 
 
 # -- references ----------------------------------------------------------
@@ -560,6 +607,7 @@ def run_static(lm, params, requests: list[Request], *, seed: int,
     cfg = lm.cfg
     draws = draws or Draws(seed, cfg)
     audio = cfg.frontend == "audio_frames"
+    before = spans.sums()
     t_start = time.perf_counter()
     for w0 in range(0, len(requests), slots):
         wave = requests[w0:w0 + slots]
@@ -601,34 +649,36 @@ def run_static(lm, params, requests: list[Request], *, seed: int,
                 logits, caches = lm.decode_step(params, batch, caches)
                 return logits
 
-        t_wave = time.perf_counter()
-        # the prompts are staged on the device once; only the last prompt
-        # step's logits go to the host
-        prompts_t = torch.as_tensor(prompts, device=dev)
-        for t in range(l_max):
-            logits = step(t, prompts_t[:, t:t + 1])
-        logits_np = _host_rows(logits)
-        rep.prefill_s += time.perf_counter() - t_wave
-        t0 = time.perf_counter()
-        toks = np.zeros((B, 1), np.int64)
-        done = [False] * B
-        for i, r in enumerate(wave):
-            tok = _sample(logits_np[i], seed, r.rid, l_max - 1,
-                          r.temperature)
-            r.out = [tok]
-            toks[i, 0] = tok
-            done[i] = eos_id is not None and tok == eos_id
-        for n in range(1, g_max):
-            logits_np = _host_rows(step(l_max + n - 1, toks))
-            rep.steps += 1
+        with span("serve.prompt", width=B):
+            # the prompts are staged on the device once; only the last
+            # prompt step's logits go to the host
+            prompts_t = torch.as_tensor(prompts, device=dev)
+            for t in range(l_max):
+                logits = step(t, prompts_t[:, t:t + 1])
+            logits_np = _host_rows(logits)
+            toks = np.zeros((B, 1), np.int64)
+            done = [False] * B
             for i, r in enumerate(wave):
-                tok = _sample(logits_np[i], seed, r.rid, l_max + n - 1,
+                tok = _sample(logits_np[i], seed, r.rid, l_max - 1,
                               r.temperature)
-                if not done[i] and len(r.out) < r.max_new:
-                    r.out.append(tok)
-                    done[i] = eos_id is not None and tok == eos_id
+                r.out = [tok]
                 toks[i, 0] = tok
-        rep.decode_s += time.perf_counter() - t0
+                done[i] = eos_id is not None and tok == eos_id
+        for n in range(1, g_max):
+            with span("serve.step", rows=B):
+                with span("serve.launch"):
+                    logits = step(l_max + n - 1, toks)
+                with span("serve.logits"):
+                    logits_np = _host_rows(logits)
+                with span("serve.sample"):
+                    rep.steps += 1
+                    for i, r in enumerate(wave):
+                        tok = _sample(logits_np[i], seed, r.rid,
+                                      l_max + n - 1, r.temperature)
+                        if not done[i] and len(r.out) < r.max_new:
+                            r.out.append(tok)
+                            done[i] = eos_id is not None and tok == eos_id
+                        toks[i, 0] = tok
         for r in wave:
             r.t_first = r.t_first or time.perf_counter()
             r.t_done = time.perf_counter()   # wave finishes together
@@ -639,4 +689,7 @@ def run_static(lm, params, requests: list[Request], *, seed: int,
     rep.generated = sum(len(r.out) for r in rep.requests)
     rep.occupancy = (rep.occupancy
                      / max(1, (rep.steps + 1) * slots))
+    rep.spans = spans.since(before)
+    rep.prefill_s = rep.spans.get("serve.prompt", (0, 0.0))[1]
+    rep.decode_s = rep.spans.get("serve.step", (0, 0.0))[1]
     return rep

@@ -135,7 +135,13 @@ def _summary(rep) -> str:
     return (f"{rep.generated} tokens / {len(rep.requests)} requests in "
             f"{rep.wall_s:.2f}s ({d['tok_per_s']:.0f} tok/s, occupancy "
             f"{rep.occupancy:.2f}, p50 {d['latency_p50_s'] * 1e3:.0f} ms, "
-            f"p99 {d['latency_p99_s'] * 1e3:.0f} ms)")
+            f"p99 {d['latency_p99_s'] * 1e3:.0f} ms)\n"
+            f"[serve]   a step: launch {rep.ms_per('serve.launch'):.3f} ms, "
+            f"logits {rep.ms_per('serve.logits'):.3f} ms, sample "
+            f"{rep.ms_per('serve.sample'):.3f} ms"
+            + (f"; side step {rep.ms_per('serve.side_steps'):.3f} ms, "
+               f"stall share {100 * rep.stall_share:.1f}%"
+               if "serve.side_steps" in rep.spans else ""))
 
 
 def main(argv=None) -> dict:
