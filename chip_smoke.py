@@ -47,7 +47,9 @@ d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
    h2o-danube-3-4b's (32/8 heads, Dh 120, with window 96 and without),
    musicgen-large's (32/32 heads, Dh 64, causal) and llama-vision's
    cross-attention (Sq 1024 over Skv 1600, 32/8 heads, Dh 128,
-   non-causal);
+   non-causal); flash attention and RMSNorm in bf16 at the groups of
+   smollm's one-pass prefill (``PASS_SHAPES``: k prompts of S tokens,
+   RMSNorm over k·S rows);
    the mLSTM chunkwise
    kernel at B=4, S=1024, H=4, Dh=384, chunk 256 at 2e-3, the
    reference's tolerance for it (no single PyTorch call computes it, so
@@ -65,11 +67,11 @@ d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
 5. smollm serve: the ``ContinuousBatcher`` with 8 slots over 16 requests
    (prompts 16-256, 32-128 new tokens, greedy, seed 0), twice: eager
    (``graphs=False``), then on CUDA graphs (``launch/graphs.py``: the
-   slot batch and one graph per prefill group width, built by an
-   untimed warm-up pass over the same trace).  First the graph of the
-   slot batch and the eager ``decode_step`` take one step from zero
-   caches on the same inputs, and their largest logits difference is
-   printed.  In each run every request completes and the RMSNorm kernel
+   slot batch's, built by an untimed warm-up pass over the same trace;
+   both runs admit each group in one eager pass, ``LM.prefill_into``).
+   First the graph of the slot batch and the eager ``decode_step`` take
+   one step from zero caches on the same inputs, and their largest
+   logits difference is printed.  In each run every request completes and the RMSNorm kernel
    launches at least 61 times per decode step; the graph run's launch
    counts must equal the eager run's, and its tokens the eager run's
    (a first divergence is accepted only where the eager run's top-2
@@ -377,6 +379,10 @@ DEVICE = "cuda"
 PREFILL_B, PREFILL_S = 4, 1024
 SLOTS, REQUESTS, SEED = 8, 16, 0
 PROMPT_RANGE, GEN_RANGE = (16, 256), (32, 128)
+#: the (k, S) groups of smollm's one-pass prefill (``LM.prefill_into``):
+#: phase 5's (up to 8 prompts of 16-256 tokens) and the chat benchmark
+#: cell's (up to 32 of 4-473); RMSNorm runs over k·S rows there
+PASS_SHAPES = ((8, 16), (8, 256), (32, 4), (32, 16), (32, 473))
 #: xlstm serving traffic (phase 7)
 X_REQUESTS, X_PROMPT_RANGE, X_GEN_RANGE = 8, (16, 128), (16, 64)
 MARGIN = 0.05
@@ -797,6 +803,11 @@ def phase_kernels() -> dict:
                                     (1000, H, KVH, None)):
             out[("mha", S, h, kvh, window, dtype)] = mha_case(
                 PREFILL_B, S, h, kvh, Dh, window, dtype)
+    for k, S in PASS_SHAPES:
+        out[("mha", "pass", k, S)] = mha_case(k, S, H, KVH, Dh, None,
+                                              torch.bfloat16)
+        out[("rmsnorm", "pass", k * S)] = rmsnorm_case(k * S, D,
+                                                       torch.bfloat16)
     for arch in HEAD_DIM_ARCHS:
         hcfg = get_config(arch)
         for window in ((None, HD_WINDOW) if hcfg.attn_window else (None,)):
@@ -1308,8 +1319,9 @@ def phase_serve(lm_k: LM, params, device: dict, n_requests: int = REQUESTS,
     margins = Margins()
     eager = serve_run(lambda: margins.run(lambda: serve(False)))
     check_served(cfg, eager, n_requests, eager.rep.steps)
-    # the graphs: the slot batch's (checked against one eager step), then
-    # one per prefill group width, in an untimed pass over the trace
+    # the graphs: the slot batch's (checked against one eager step), then,
+    # where the batcher admits by side steps, one per prefill group width,
+    # in an untimed pass over the trace
     built0, t0 = graphs.stats(), time.perf_counter()
     diff = first_step_diff(lm_k, params, s_max, True, "slots")
     serve(True)

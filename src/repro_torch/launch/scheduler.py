@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.launch.scheduler``.  A fixed-width decode batch of
 ``slots`` rows steps every iteration, while a request queue feeds free
-slots through prefill side steps grouped by a power-of-two bucket of the
-prompt length.  A slot is freed the moment its request finishes (EOS or
-``max_new``) and the next queued request is admitted into it.
+slots through a prefill of each group of requests of one power-of-two
+bucket of the prompt length.  A slot is freed the moment its request
+finishes (EOS or ``max_new``) and the next queued request is admitted
+into it.
 
 Correctness rests on the same three model-layer properties as the
 reference: per-slot cache positions, ``active`` gating (an inactive
@@ -12,17 +13,31 @@ slot's caches come out bit-identical), and row independence (no MoE), so
 the streamed tokens equal a per-request offline decode
 (:func:`decode_offline`).
 
-Prefill of a group of ``k`` same-bucket requests runs as a loop of gated
-``decode_step``s over a fresh zero batch-``k`` cache, then scatters each
-filled row into its slot of the batch cache.  The loop stops at the
-group's longest prompt: the reference scans the whole bucket to bound its
-jit compiles, and the extra steps are all-inactive no-ops.
+Prefill of a group of ``k`` same-bucket requests: where every layer is
+GQA self-attention over tokens and the KV caches hold all ``s_max`` rows
+(``LM.fills_caches``), one full-sequence pass over the prompts, padded on
+the right, writes each prompt's k/v straight into its slot of the batch
+cache (``LM.prefill_into``; its attention runs the flash kernel under
+``use_kernels``).  Every other stack (recurrent state, audio frames,
+cross-attention, a windowed cache shorter than ``s_max``) runs the
+reference's form: a loop of gated ``decode_step``s (side steps) over a
+fresh zero batch-``k`` cache, then a scatter of each filled row into its
+slot.  The loop stops at the group's longest prompt: the reference scans
+the whole bucket to bound its jit compiles, and the extra steps are
+all-inactive no-ops.  On the card the pass's attention rounds otherwise
+than the decode step's (the flash kernel keeps the scores in f32, where
+the decode step rounds them to bf16, as the reference's does), so its
+k/v equal the side steps' up to bf16 rounding, and greedy tokens may
+part from theirs at a near tie; off the card the pass runs the plain
+attention, which rounds as the decode step does.
 
 Compiled steps (``graphs``, the default): as the reference jits its
 decode step and its prefill side step, the batcher replays CUDA graphs
 (``launch/graphs.py``): one of the slot batch, whose static caches are
-the batch cache, and one per prefill group width ``k``, over a static
-batch-``k`` cache zeroed before each group.  On the CPU the same
+the batch cache, and, for side steps, one per prefill group width ``k``,
+over a static batch-``k`` cache zeroed before each group.  The one-pass
+prefill runs eagerly (its shapes follow each group) and writes the slot
+graph's static caches in place.  On the CPU the same
 ``StepGraph`` runs its step directly; ``graphs=False`` issues every
 operation from Python (the eager path).  The graphs are memoised per
 model and params, so batchers of one model share their caches: run one
@@ -40,10 +55,14 @@ static buffers and the replay, or the eager step), ``serve.logits`` (the
 host blocked until the step's logits are in host memory) and
 ``serve.sample`` (sampling every row, positions and tokens, evictions).
 The batcher's admission round is ``serve.admit``; inside it each group's
-replay loop is ``serve.side_steps`` (counting its side steps) and its
-install ``serve.install`` (the scatter into the slot caches, the first
-tokens' copy and their sampling).  ``run_static``'s prompt steps, first
-logits and first tokens are ``serve.prompt``.  The report's
+one-pass prefill is ``serve.prefill`` (range arguments ``rids`` and
+``tokens``, the padded batch's k × S), or its replay loop
+``serve.side_steps`` (counting its side steps), and its install
+``serve.install`` (the scatter into the slot caches after side steps,
+the first tokens' copy and their sampling): ``serve.prefill``'s count
+over ``serve.install``'s is the share of groups the pass took.
+``run_static``'s prompt steps, first logits and first tokens are
+``serve.prompt``.  The report's
 ``prefill_s`` and ``decode_s`` are those spans' sums over the run:
 ``serve.admit`` (or ``serve.prompt``), and ``serve.launch`` +
 ``serve.logits`` in the batcher, ``serve.step`` on the static path
@@ -271,6 +290,10 @@ class ContinuousBatcher:
         self.prefill_min = prefill_min
         self.draws = draws or Draws(seed, lm.cfg)
         self.audio = lm.cfg.frontend == "audio_frames"
+        #: admission fills a group's slots in one full-sequence pass
+        #: (``LM.prefill_into``) where the model's caches allow it, else
+        #: token by token through side steps
+        self.one_pass = lm.fills_caches(s_max)
 
         self.graphs = graphs is not False
         self._slot_graph = None
@@ -321,11 +344,56 @@ class ContinuousBatcher:
         self.queue.append(req)
         return req
 
-    # -- prefill side step -----------------------------------------------
+    # -- admission -------------------------------------------------------
     def _admit_group(self, pairs: list[tuple[int, Request]]) -> None:
-        """Prefill one same-bucket group of requests as gated decode
-        steps over a fresh batch-``k`` cache, scatter each filled row into
-        its slot, then sample each request's first token."""
+        """Prefill one same-bucket group of requests into its slots, in
+        one pass where the model allows it (``one_pass``), else as side
+        steps, then sample each request's first token."""
+        rids = ",".join(str(r.rid) for _, r in pairs)
+        slot_vec = torch.as_tensor([s for s, _ in pairs], device=self.device)
+        if self.one_pass:
+            last, filled = self._prefill(pairs, slot_vec, rids), None
+        else:
+            last, filled = self._side_steps(pairs, rids)
+        with span("serve.install", rids=rids):
+            if filled is not None:
+                self._install(slot_vec, *filled)
+            last_np = last.float().cpu().numpy()
+            t_first = time.perf_counter()
+            for i, (slot, req) in enumerate(pairs):
+                tok = _sample(last_np[i], self.seed, req.rid,
+                              req.prompt_len - 1, req.temperature)
+                req.out.append(tok)
+                req.t_first = t_first
+                self.pos[slot] = req.prompt_len
+                self.active[slot] = True
+                self.tokens[slot, 0] = tok
+                self.slot_req[slot] = req
+                self._maybe_finish(slot, tok)
+
+    def _prefill(self, pairs: list[tuple[int, Request]],
+                 slot_vec: torch.Tensor, rids: str) -> torch.Tensor:
+        """The group's prompts, padded on the right to the longest, in
+        one full-sequence pass that writes their k/v into the slots'
+        caches (``LM.prefill_into``); returns each request's logits at
+        its last prompt position, (k, vocab)."""
+        dev = self.device
+        lengths = [r.prompt_len for _, r in pairs]
+        toks = np.zeros((len(pairs), max(lengths)), np.int64)
+        for i, (_slot, req) in enumerate(pairs):
+            toks[i, :req.prompt_len] = req.prompt
+        with span("serve.prefill", rids=rids, tokens=toks.size):
+            return self.lm.prefill_into(
+                self.params, torch.as_tensor(toks, device=dev),
+                torch.as_tensor(lengths, device=dev), self.caches,
+                slot_vec)[:, -1]
+
+    def _side_steps(self, pairs: list[tuple[int, Request]], rids: str):
+        """The group's prompts as gated decode steps over a fresh
+        batch-``k`` cache, token by token; returns each request's logits
+        at its last prompt position, and what ``_install`` takes: the
+        filled batch-``k`` cache and the group's images (``None`` but for
+        the vision frontend)."""
         lm, dev = self.lm, self.device
         k = len(pairs)
         lengths = np.array([r.prompt_len for _, r in pairs], np.int64)
@@ -375,7 +443,6 @@ class ContinuousBatcher:
         # each request's logits at its last prompt position, in a buffer
         # of their own (a graph's logits are overwritten by its next run)
         last = None
-        rids = ",".join(str(r.rid) for _, r in pairs)
         with span("serve.side_steps", n=steps, rids=rids):
             for t in range(steps):
                 row = step(t)[:, -1]
@@ -384,33 +451,22 @@ class ContinuousBatcher:
                     continue
                 for i in np.flatnonzero(lengths - 1 == t):
                     last[int(i)] = row[int(i)]
-        with span("serve.install", rids=rids):
-            # install every leaf of each block's cache (KVCache,
-            # MLSTMState, SLSTMState): the batch axis is 0, or 1 inside a
-            # stacked group whose leading axis is layers.
-            slot_vec = torch.as_tensor([s for s, _ in pairs], device=dev)
-            for gi, (_pattern, repeats) in enumerate(lm._groups()):
-                g = f"group{gi}"
-                for b, big in self.caches[g].items():
-                    for dst, src in zip(big, small[g][b]):
-                        if repeats > 1:
-                            dst[:, slot_vec] = src
-                        else:
-                            dst[slot_vec] = src
-            if img is not None:
-                self.img[slot_vec] = img
-            last_np = last.float().cpu().numpy()
-            t_first = time.perf_counter()
-            for i, (slot, req) in enumerate(pairs):
-                tok = _sample(last_np[i], self.seed, req.rid,
-                              req.prompt_len - 1, req.temperature)
-                req.out.append(tok)
-                req.t_first = t_first
-                self.pos[slot] = req.prompt_len
-                self.active[slot] = True
-                self.tokens[slot, 0] = tok
-                self.slot_req[slot] = req
-                self._maybe_finish(slot, tok)
+        return last, (small, img)
+
+    def _install(self, slot_vec: torch.Tensor, small: dict, img) -> None:
+        """Scatter every leaf of each block's batch-``k`` cache (KVCache,
+        MLSTMState, SLSTMState) into the group's slots: the batch axis is
+        0, or 1 inside a stacked group whose leading axis is layers."""
+        for gi, (_pattern, repeats) in enumerate(self.lm._groups()):
+            g = f"group{gi}"
+            for b, big in self.caches[g].items():
+                for dst, src in zip(big, small[g][b]):
+                    if repeats > 1:
+                        dst[:, slot_vec] = src
+                    else:
+                        dst[slot_vec] = src
+        if img is not None:
+            self.img[slot_vec] = img
 
     def _evict(self, slot: int, finish: str) -> None:
         req = self.slot_req[slot]

@@ -36,9 +36,15 @@ every MoE FFN.  ``--plain`` builds it with ``use_kernels=False``, the
 reference's serving path (``repro.launch.serve`` serves without its
 kernels), which ``chip_smoke.py`` holds the kernel path's greedy tokens
 to on the card.
-Prompts are prefilled as decode steps, so attention reads the KV cache
-and the mLSTM and Mamba run their step forms there; the flash-attention,
-mLSTM chunkwise and selective-scan kernels serve ``LM.prefill``.
+The continuous batcher prefills each admission group's prompts in one
+full-sequence pass that writes their k/v into the slots' caches, its
+attention on the flash-attention kernel, where every layer is GQA
+self-attention over tokens (``LM.fills_caches``: smollm, stablelm,
+h2o-danube); other stacks, and ``run_static`` always, prefill as decode
+steps, so attention reads the KV cache and the mLSTM and Mamba run their
+step forms there; the flash-attention, mLSTM chunkwise and
+selective-scan kernels serve ``LM.prefill``.  The continuous summary
+prints the share of groups the one-pass prefill took.
 ``--device cpu`` runs the same path on the CPU with the kernels' plain
 versions.
 
@@ -130,6 +136,21 @@ def _static_requests(trace: list[dict]) -> list[Request]:
             for i, t in enumerate(trace)]
 
 
+def _admission(rep) -> str:
+    """The batcher's admission phases: the share of groups the one-pass
+    prefill took, the ms of a pass and of a side step, the stall share."""
+    groups = rep.spans.get("serve.install", (0, 0.0))[0]
+    if not groups:
+        return ""
+    passes = rep.spans.get("serve.prefill", (0, 0.0))[0]
+    out = f"; prefill pass on {passes / groups:.2f} of {groups} groups"
+    if passes:
+        out += f" ({rep.ms_per('serve.prefill'):.3f} ms a pass)"
+    if "serve.side_steps" in rep.spans:
+        out += f", side step {rep.ms_per('serve.side_steps'):.3f} ms"
+    return out + f", stall share {100 * rep.stall_share:.1f}%"
+
+
 def _summary(rep) -> str:
     d = rep.to_dict()
     return (f"{rep.generated} tokens / {len(rep.requests)} requests in "
@@ -138,10 +159,7 @@ def _summary(rep) -> str:
             f"p99 {d['latency_p99_s'] * 1e3:.0f} ms)\n"
             f"[serve]   a step: launch {rep.ms_per('serve.launch'):.3f} ms, "
             f"logits {rep.ms_per('serve.logits'):.3f} ms, sample "
-            f"{rep.ms_per('serve.sample'):.3f} ms"
-            + (f"; side step {rep.ms_per('serve.side_steps'):.3f} ms, "
-               f"stall share {100 * rep.stall_share:.1f}%"
-               if "serve.side_steps" in rep.spans else ""))
+            f"{rep.ms_per('serve.sample'):.3f} ms" + _admission(rep))
 
 
 def main(argv=None) -> dict:

@@ -207,6 +207,24 @@ def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor | None,
         _write_rows(cache.v, v, cache.pos, active)
 
 
+def fill_slots(cache: KVCache, rows: KVCache, slots: torch.Tensor,
+               lengths: torch.Tensor, axis: int = 0) -> None:
+    """Write row ``i`` of a full sequence's k/v (``rows.k``, ``rows.v``:
+    (n, S, KVH, Dh)) into slot ``slots[i]`` of a per-slot ``cache`` in
+    place: its rows ``[0, lengths[i])``, zeros in the slot's rows past
+    them, and position ``lengths[i]``, as that many gated decode steps
+    from a zero cache leave it.  ``axis`` is the batch axis: 1 inside a
+    stacked group, whose leading axis (layers) both trees share."""
+    S = rows.k.shape[axis + 1]
+    keep = (torch.arange(S, device=slots.device) < lengths[:, None]
+            )[..., None, None]
+    at = (slice(None),) * axis + (slots,)
+    for buf, new in ((cache.k, rows.k), (cache.v, rows.v)):
+        buf.index_fill_(axis, slots, 0)
+        buf[at + (slice(0, S),)] = torch.where(keep, new, 0)
+    cache.pos[at] = lengths.to(cache.pos.dtype)
+
+
 def gqa_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
                   positions: torch.Tensor, constrain: Constrain,
                   cache: KVCache | None = None,
@@ -214,12 +232,14 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
                   causal: bool = True,
                   use_kernels: bool = False,
                   active: torch.Tensor | None = None,
+                  keep_kv: bool = False,
                   ) -> tuple[torch.Tensor, KVCache | None]:
     """Self- or cross-attention.  ``cache`` implies single-step decode
     (``active`` gates its per-slot write); without a cache ``use_kernels``
-    runs the flash-attention kernel.  ``kv_x`` switches to
-    cross-attention over a context stream: k/v from ``kv_x``, no RoPE,
-    no causal mask.
+    runs the flash-attention kernel, and ``keep_kv`` returns the full
+    sequence's post-RoPE k/v rows as ``KVCache(k, v, None)`` (for
+    ``fill_slots``).  ``kv_x`` switches to cross-attention over a context
+    stream: k/v from ``kv_x``, no RoPE, no causal mask.
 
     With a cache, cross-attention does what the reference's does: it
     projects all of ``kv_x`` and writes it into the layer's KV cache like
@@ -252,6 +272,8 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
         mask = decode_mask(cache.k.shape[1], cache.pos, cfg.attn_window)
         ctx = _sdpa(q, cache.k, cache.v, mask)
     else:
+        if keep_kv:
+            new_cache = KVCache(k, v, None)
         is_causal = causal and kv_x is None
         if use_kernels:
             from ..kernels.flash_attention import ops as fa_ops

@@ -17,6 +17,11 @@ Entry points:
 * ``logits_fn(params, batch)`` — full-sequence logits (teacher forcing).
 * ``prefill(params, batch)`` — full-sequence forward; returns the
   last-position logits (as the reference does; it returns no caches).
+* ``prefill_into(params, tokens, lengths, caches, slots)`` — the same
+  forward over right-padded prompts that also writes each attention
+  layer's k/v rows into given slots of per-slot decode caches (GQA
+  self-attention stacks only: ``fills_caches``); returns each prompt's
+  last logits.  The reference has no counterpart.
 * ``decode_step(params, batch, caches)`` — one-token step with KV (MLA:
   latent), SSM or xLSTM state caches, scalar or per-slot positions,
   optional ``active`` gating.
@@ -52,8 +57,8 @@ from .. import resolve_device
 from ..bridge import params_from_numpy
 from ..configs.base import ArchConfig
 from ..core.plan import ambient_mesh, layer_of, lookup, project, relayout
-from .attention import (KVCache, gqa_attention, init_gqa, init_mla,
-                        mla_attention)
+from .attention import (KVCache, fill_slots, gqa_attention, init_gqa,
+                        init_mla, mla_attention)
 from .layers import (BF16, F32, ParamBuilder, apply_norm, cross_entropy,
                      init_mlp, init_norm, mlp)
 from .moe import MoEAux, init_moe, moe_ffn
@@ -154,6 +159,13 @@ class LM:
             raise ValueError(f"remat must be one of {REMATS}, got "
                              f"{self.remat!r}")
         self.device = resolve_device(self.device)
+        if self.use_kernels and self.device.type == "cuda":
+            # every kernel library built and loaded now, so that no first
+            # call of a kernel builds or loads one inside a timed loop
+            from ..kernels import _build
+            _build.build_all()
+            for name in _build.sources():
+                _build.load(name)
 
     # -- helpers ---------------------------------------------------------------
     @property
@@ -290,10 +302,12 @@ class LM:
         return out
 
     def _block(self, resid, bp, mix, ffn, positions, img, cache=None,
-               active=None):
+               active=None, keep_kv=False):
         """One layer; returns (resid, aux, new_cache) with ``aux`` the
         ``MoEAux`` of an MoE FFN, else ``None``.  An ``xattn`` layer
-        attends to ``img``."""
+        attends to ``img``.  With ``keep_kv`` and no cache, a GQA layer's
+        ``new_cache`` is its full sequence's k/v rows
+        (``attention.gqa_attention``)."""
         cfg = self.cfg
         c = self.constrain
         projects = self._projects(mix, ffn)
@@ -305,11 +319,17 @@ class LM:
             out, new_cache = mla_attention(x, bp["mix"], cfg, positions, c,
                                            cache=cache, active=active)
         elif mix in ("attn", "xattn"):
+            # a pass that fills decode caches (keep_kv) takes the flash
+            # kernel only where it is one, on the card: the kernel's plain
+            # version keeps the scores in f32, and the plain attention
+            # rounds them as the decode steps do, so that off the card the
+            # pass writes the side steps' caches and logits
+            flash = self.use_kernels and cache is None and (
+                not keep_kv or x.is_cuda)
             out, new_cache = gqa_attention(
                 x, bp["mix"], cfg, positions, c, cache=cache,
                 kv_x=img if mix == "xattn" else None,
-                use_kernels=self.use_kernels and cache is None,
-                active=active)
+                use_kernels=flash, active=active, keep_kv=keep_kv)
         elif mix == "mlstm":
             if cache is not None:
                 out, new_cache = mlstm_block(x, bp["mix"], cfg, c,
@@ -350,36 +370,39 @@ class LM:
         return resid, aux, new_cache
 
     def _super_block(self, resid, gparams, pattern, positions, img,
-                     caches=None, active=None):
+                     caches=None, active=None, keep_kv=False):
         """Returns (resid, the MoEAux of each MoE layer, new_caches)."""
         auxes = []
-        new_caches = {} if caches is not None else None
+        new_caches = {} if caches is not None or keep_kv else None
         for j, (mix, ffn) in enumerate(pattern):
             cache = caches.get(f"b{j}") if caches is not None else None
             resid, aux, nc = self._block(resid, gparams[f"b{j}"], mix, ffn,
-                                         positions, img, cache, active)
+                                         positions, img, cache, active,
+                                         keep_kv)
             if aux is not None:
                 auxes.append(aux)
-            if caches is not None:
+            if new_caches is not None:
                 new_caches[f"b{j}"] = nc
         return resid, auxes, new_caches
 
     # -- forward -------------------------------------------------------------------
     def _backbone(self, params, resid, positions, img, caches=None,
-                  active=None):
+                  active=None, keep_kv=False):
         """Runs all layer groups; returns (resid, the MoEAux of each MoE
-        layer in order, new_caches)."""
+        layer in order, new_caches).  With ``keep_kv`` and no caches,
+        ``new_caches`` holds each GQA layer's k/v rows (``_block``),
+        stacked on a leading layers axis inside a stacked group."""
         auxes = []
-        new_caches = {} if caches is not None else None
+        new_caches = {} if caches is not None or keep_kv else None
         for gi, (pattern, repeats) in enumerate(self._groups()):
             gparams = params[f"group{gi}"]
             gcaches = caches.get(f"group{gi}") if caches is not None else None
             if repeats == 1:
                 resid, ax, nc = self._super_block(resid, gparams, pattern,
                                                   positions, img, gcaches,
-                                                  active)
+                                                  active, keep_kv)
                 auxes += ax
-                if caches is not None:
+                if new_caches is not None:
                     new_caches[f"group{gi}"] = nc
                 continue
             # the loop that replaces lax.scan over the stacked layers axis
@@ -396,13 +419,17 @@ class LM:
                     nc = None
                 else:
                     resid, ax, nc = self._super_block(
-                        resid, lp, pattern, positions, img, lc, active)
+                        resid, lp, pattern, positions, img, lc, active,
+                        keep_kv)
                 auxes += ax
                 given.append(lc)
                 per_layer.append(nc)
             if caches is not None:
                 new_caches[f"group{gi}"] = _stack_layers(gcaches, given,
                                                          per_layer)
+            elif keep_kv:
+                new_caches[f"group{gi}"] = _map_cache(
+                    lambda *rows: torch.stack(rows), *per_layer)
         return resid, auxes, new_caches
 
     def _remat_layer(self, resid, lp, pattern, positions, img):
@@ -522,6 +549,52 @@ class LM:
                          sum(a.dropped_fraction for a in auxes) / len(auxes))
         return logits, aux
 
+    def fills_caches(self, S_max: int) -> bool:
+        """Whether ``prefill_into`` can fill this model's decode caches of
+        ``S_max`` rows: the tokens frontend, GQA self-attention in every
+        layer (no recurrent state, no MLA latent, no cross-attention) and
+        KV caches that hold all ``S_max`` rows."""
+        return self._gqa_over_tokens() and self._kv_rows(S_max) == S_max
+
+    def _gqa_over_tokens(self) -> bool:
+        """The tokens frontend, and GQA self-attention in every layer."""
+        cfg = self.cfg
+        return (cfg.frontend == "tokens" and cfg.mla is None
+                and all(mix == "attn" for mix, _ in cfg.layer_kinds()))
+
+    @torch.no_grad()
+    def prefill_into(self, params, tokens, lengths, caches,
+                     slots) -> torch.Tensor:
+        """The full-sequence forward of ``tokens`` (k, S), row ``i`` a
+        prompt of ``lengths[i]`` tokens padded on the right (causal
+        attention keeps the padding out of the prompt's positions), that
+        also fills slot ``slots[i]`` of ``caches`` (from
+        ``init_caches(B, S_max, vector_pos=True)``) in place as
+        ``lengths[i]`` gated decode steps from a zero cache would: each
+        layer's post-RoPE k and v in rows ``[0, lengths[i])``, zeros in
+        the rows past them, and position ``lengths[i]``.  The other slots
+        are left as they are.  Returns each row's logits at its last
+        prompt position, ``(k, 1, vocab)``; the head runs on those rows
+        only.  Under ``use_kernels`` its attention is the flash kernel on
+        the card, and elsewhere the plain attention, which rounds its
+        scores as the decode steps do (``_block``).  For caches of an
+        ``S_max`` at which ``fills_caches`` holds."""
+        k, S = tokens.shape
+        if not self._gqa_over_tokens():
+            raise ValueError(f"{self.cfg.name}: prefill_into fills GQA "
+                             "self-attention caches of the tokens frontend "
+                             "only (see fills_caches)")
+        resid, _ = self._embed(params, {"tokens": tokens})
+        resid, _, kv = self._backbone(params, resid, self._positions(k, S),
+                                      None, keep_kv=True)
+        for gi, (_pattern, repeats) in enumerate(self._groups()):
+            g = f"group{gi}"
+            for b, rows in kv[g].items():
+                fill_slots(caches[g][b], rows, slots, lengths,
+                           1 if repeats > 1 else 0)
+        last = resid[torch.arange(k, device=resid.device), lengths - 1]
+        return self._head(params, last[:, None])
+
     def decode_step(self, params, batch, caches) -> tuple[torch.Tensor, dict]:
         """One-token step: ``batch`` holds the current token ``(B,1)`` (or
         frame ``(B,1,d_model)``, and the image embeddings) and the
@@ -639,6 +712,14 @@ class LM:
             out[f"group{gi}"] = g
         return out
 
+    def _kv_rows(self, S_max: int) -> int:
+        """The rows a GQA layer's KV cache of capacity ``S_max`` holds.
+        As the reference: a sliding-window model's cache holds only its
+        window past 65536 positions (long_500k), where the window is what
+        makes the cell fit; a scalar write clamps."""
+        w = self.cfg.attn_window
+        return min(S_max, w) if w and S_max > 65536 else S_max
+
     def _block_cache(self, mix, B, S_max, repeats, vector_pos, device):
         cfg = self.cfg
         lead = (repeats,) if repeats > 1 else ()
@@ -652,11 +733,7 @@ class LM:
             return KVCache(z((B, S_max, m.kv_lora + m.rope_dim)), None, pos)
         if mix in ("attn", "xattn"):
             KVH, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
-            # as the reference: a sliding-window model's cache holds only
-            # its window past 65536 positions (long_500k), where the
-            # window is what makes the cell fit; a scalar write clamps
-            S_c = (min(S_max, cfg.attn_window)
-                   if cfg.attn_window and S_max > 65536 else S_max)
+            S_c = self._kv_rows(S_max)
             return KVCache(z((B, S_c, KVH, Dh)), z((B, S_c, KVH, Dh)), pos)
         if mix == "mlstm":
             H = cfg.n_heads

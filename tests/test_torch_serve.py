@@ -24,9 +24,10 @@ from repro.configs import get_config as jget
 from repro.launch import scheduler as JS
 from repro.models.lm import LM as JLM
 from repro_torch.configs import get_config
+from repro_torch.launch import graphs
 from repro_torch.launch import scheduler as TS
 from repro_torch.launch.serve import main as serve_main
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, _map_cache
 from torch_parity import numpy_tree
 
 S_MAX = 96
@@ -126,6 +127,84 @@ def test_greedy_tokens_match_jitted_reference_up_to_ties(served):
                 assert top2[1] - top2[0] <= 2e-2 * max(1.0, abs(top2[1])), \
                     f"rid {rid} step {t}: margin {top2[1] - top2[0]}"
                 break
+
+
+def _random_caches(caches, seed):
+    """Random leaves shaped as ``caches``: the k/v rows and positions of
+    requests already running in every slot."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(t):
+        if t.is_floating_point():
+            return torch.randn(t.shape, generator=gen).to(t.dtype)
+        return torch.randint(1, 50, t.shape, generator=gen).to(t.dtype)
+    return _map_cache(draw, caches)
+
+
+@pytest.mark.parametrize("graphs_on", [None, False], ids=["graphs", "eager"])
+def test_one_pass_fills_the_slots_as_side_steps(served, graphs_on):
+    """A group admitted by the one-pass prefill (``LM.prefill_into``,
+    padded to the longest prompt) leaves its slots' caches as the side
+    steps leave them, bit for bit off the card (the pass's attention
+    rounds as the decode step's there): each prompt's k/v rows, zeros in
+    the rows past the prompt, positions; the other slots, which hold
+    running requests, as they were; and the first logits."""
+    _, _, lm, params = served
+    lengths = {1: 5, 3: 13, 4: 9}           # slot -> prompt length
+    rng = np.random.default_rng(11)
+    prompts = {s: rng.integers(0, lm.cfg.vocab, n)
+               for s, n in lengths.items()}
+    slot_vec = torch.as_tensor(list(lengths))
+    before = _random_caches(lm.init_caches(5, S_MAX, vector_pos=True), 3)
+    got = {}
+    for one_pass in (True, False):
+        b = TS.ContinuousBatcher(lm, params, slots=5, s_max=S_MAX,
+                                 graphs=graphs_on)
+        assert b.one_pass
+        graphs.copy_into(b.caches, _map_cache(torch.clone, before))
+        pairs = [(s, TS.Request(rid=s, prompt_len=n, max_new=4,
+                                prompt=prompts[s]))
+                 for s, n in lengths.items()]
+        if one_pass:
+            last = b._prefill(pairs, slot_vec, "1,3,4")
+        else:
+            last, filled = b._side_steps(pairs, "1,3,4")
+            b._install(slot_vec, *filled)
+        got[one_pass] = (_map_cache(torch.clone, b.caches), last)
+    (one, one_last), (side, side_last) = got[True], got[False]
+    assert torch.equal(one_last, side_last)
+    for g in one:
+        for blk in one[g]:
+            for a, b_, o in zip(one[g][blk], side[g][blk],
+                                before[g][blk]):
+                assert torch.equal(a, b_)
+                for s in range(5):
+                    n = lengths.get(s)
+                    if n is None:   # a running request's slot: untouched
+                        assert torch.equal(a[:, s], o[:, s])
+                    elif a.is_floating_point():
+                        assert a[:, s, :n].any() and not a[:, s, n:].any()
+                    else:           # the position
+                        assert (a[:, s] == n).all()
+
+
+def test_one_pass_greedy_tokens_match_offline(served):
+    """Twenty-eight greedy requests, prompts of 3-60 tokens in the
+    buckets 16, 32 and 64, through four slots, every group admitted by
+    the one-pass prefill: each request's first token and streamed tokens
+    equal its ``decode_offline``, whose prompt runs as decode steps."""
+    _, _, lm, params = served
+    rng = np.random.default_rng(12)
+    trace = [(rng.integers(0, lm.cfg.vocab, int(rng.integers(3, 61))),
+              int(rng.integers(4, 12)), 0.0) for _ in range(28)]
+    assert {TS.prefill_bucket(len(p)) for p, _, _ in trace} == {16, 32, 64}
+    rep = _run(lm, params, trace, slots=4)
+    assert rep.spans["serve.prefill"][0] == rep.spans["serve.install"][0]
+    assert len(rep.requests) == 28
+    for r in rep.requests:
+        assert r.finish == "length" and len(r.out) == r.max_new
+        assert r.out == TS.decode_offline(lm, params, r, seed=0,
+                                          s_max=S_MAX), f"rid {r.rid}"
 
 
 @pytest.fixture(scope="module")

@@ -1,8 +1,10 @@
 """The serving loop's host spans (``repro_torch.launch.spans``) and the
 requests' stall counter, on the CPU with the smoke configs.
 
-The decode step's three spans tile it and give the report's sums; the
-counts follow the steps and side steps run; a recording profiler sees
+The decode step's three spans tile it and give the report's sums (on a
+clock the test controls); the counts follow the steps, the one-pass
+prefills and the side steps run; the batcher admits by the one-pass
+prefill exactly where the stack allows it; a recording profiler sees
 each span as a range and changes no token; ``stall_s`` is the admission
 time a running request waited; and the benchmark's readers of them
 return a number from a run of their cell's driver.
@@ -25,12 +27,22 @@ S_MAX = 96
 STEP = ("serve.launch", "serve.logits", "serve.sample")
 
 
+_MODELS: dict = {}
+
+
+def _model(arch):
+    """The smoke ``arch`` with the kernels' plain versions, and params
+    from seed 0 (built once a module)."""
+    if arch not in _MODELS:
+        lm = LM(get_config(arch, smoke=True), use_kernels=True,
+                device="cpu")
+        _MODELS[arch] = (lm, lm.init(0)[0])
+    return _MODELS[arch]
+
+
 @pytest.fixture(scope="module")
 def model():
-    lm = LM(get_config("smollm-135m", smoke=True), use_kernels=True,
-            device="cpu")
-    params, _ = lm.init(0)
-    return lm, params
+    return _model("smollm-135m")
 
 
 def _trace(cfg, n=6, seed=0):
@@ -49,8 +61,49 @@ def _continuous(lm, params, trace, slots=3, groups=None):
             admit(pairs)
         b._admit_group = record
     for prompt, gen in trace:
-        b.submit(prompt, gen)
+        if lm.cfg.frontend == "audio_frames":
+            b.submit(None, gen, prompt_len=len(prompt))
+        else:
+            b.submit(prompt, gen)
     return b.run()
+
+
+class _Clock:
+    """A clock the test controls, in place of ``time.perf_counter`` and
+    ``perf_counter_ns`` (the spans' and the batcher's): each read
+    advances it by a tick (1 us), each call of the model (a decode step,
+    a one-pass prefill) by a step (1 ms), as the card's work would.  The
+    spans then measure the loop's own structure, the reads and the steps
+    inside and outside each span, and not how a loaded machine shares
+    its cores among the workers that run beside the test."""
+
+    TICK, STEP = 1_000, 1_000_000
+
+    def __init__(self):
+        self.ns = 0
+
+    def read_ns(self) -> int:
+        self.ns += self.TICK
+        return self.ns
+
+    def read(self) -> float:
+        return self.read_ns() / 1e9
+
+    def stepped(self, fn):
+        def call(*args, **kw):
+            self.ns += self.STEP
+            return fn(*args, **kw)
+        return call
+
+
+@pytest.fixture
+def clock(monkeypatch):
+    c = _Clock()
+    monkeypatch.setattr(time, "perf_counter_ns", c.read_ns)
+    monkeypatch.setattr(time, "perf_counter", c.read)
+    for name in ("decode_step", "prefill_into"):
+        monkeypatch.setattr(LM, name, c.stepped(getattr(LM, name)))
+    return c
 
 
 def _static(lm, params, trace, slots=3):
@@ -64,10 +117,13 @@ def _sec(rep, name):
 
 
 @pytest.mark.parametrize("path", ["continuous", "static"])
-def test_step_spans_add_up_to_the_report_sums(model, path):
+def test_step_spans_add_up_to_the_report_sums(model, path, clock):
     """launch + logits (+ sample on the static path) is ``decode_s``,
     admission (or the prompt steps) ``prefill_s``, within 1%; the step
-    spans and the admission rounds cover the loop's wall time."""
+    spans and the admission rounds cover the loop's wall time.  Both
+    wall-clock checks run on the test's ``clock``: on the host's, with
+    other workers on its cores, a preemption between two spans missed
+    either the 1% of the tiling or the 0.97 of the cover."""
     lm, params = model
     trace = _trace(lm.cfg)
     if path == "continuous":
@@ -88,21 +144,58 @@ def test_step_spans_add_up_to_the_report_sums(model, path):
         assert 0.97 * rep.wall_s <= covered <= rep.wall_s
 
 
-def test_counts_follow_steps_and_side_steps(model):
-    lm, params = model
+@pytest.mark.parametrize("arch", ["smollm-135m", "xlstm-125m"])
+def test_counts_follow_steps_and_side_steps(arch):
+    """One ``serve.install`` a group; a ``serve.prefill`` a group where
+    the batcher admits in one pass (smollm), else a ``serve.side_steps``
+    count a side step (xlstm, whose stack carries recurrent state)."""
+    lm, params = _model(arch)
     groups: list = []
     rep = _continuous(lm, params, _trace(lm.cfg, n=7, seed=1), slots=2,
                       groups=groups)
     for name in ("serve.step",) + STEP:
         assert rep.spans[name][0] == rep.steps
-    assert rep.spans["serve.side_steps"][0] == sum(
-        max(r.prompt_len for r in g) for g in groups)
+    if arch == "smollm-135m":
+        assert rep.spans["serve.prefill"][0] == len(groups)
+        assert "serve.side_steps" not in rep.spans
+    else:
+        assert rep.spans["serve.side_steps"][0] == sum(
+            max(r.prompt_len for r in g) for g in groups)
+        assert "serve.prefill" not in rep.spans
     assert rep.spans["serve.install"][0] == len(groups)
     srep = _static(lm, params, _trace(lm.cfg, n=5), slots=2)
     for name in ("serve.step",) + STEP:
         assert srep.spans[name][0] == srep.steps
     assert srep.spans["serve.prompt"][0] == 3
     assert "serve.side_steps" not in srep.spans
+    assert "serve.prefill" not in srep.spans
+
+
+@pytest.mark.parametrize("arch,one_pass", [
+    ("smollm-135m", True), ("h2o-danube-3-4b", True),
+    ("xlstm-125m", False), ("musicgen-large", False),
+    ("llama-3.2-vision-11b", False)])
+def test_admission_path_follows_the_stack(arch, one_pass):
+    """The batcher admits every group by the one-pass prefill where each
+    layer is GQA self-attention over tokens with every cache row held
+    (smollm; h2o-danube's window of 16 with all ``s_max`` rows cached),
+    and by side steps, recording no ``serve.prefill``, where the stack
+    carries recurrent state (xlstm), reads audio frames (musicgen) or
+    cross-attends (llama-vision)."""
+    lm, params = _model(arch)
+    assert lm.fills_caches(S_MAX) is one_pass
+    if lm.cfg.attn_window:
+        # past 65536 rows the cache keeps only the window: side steps
+        assert not lm.fills_caches(1 << 17)
+    rep = _continuous(lm, params, _trace(lm.cfg, n=5, seed=6), slots=2)
+    groups = rep.spans["serve.install"][0]
+    assert groups >= 2
+    if one_pass:
+        assert rep.spans["serve.prefill"][0] == groups
+        assert "serve.side_steps" not in rep.spans
+    else:
+        assert "serve.prefill" not in rep.spans
+        assert rep.spans["serve.side_steps"][0] > 0
 
 
 def test_process_sums_and_reset(model):
@@ -160,10 +253,13 @@ def _inside(inner, outer):
         inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"] + 1e-3
 
 
-def test_chrome_trace_holds_the_ranges(model, tmp_path):
+@pytest.mark.parametrize("arch", ["smollm-135m", "xlstm-125m"])
+def test_chrome_trace_holds_the_ranges(arch, tmp_path):
     """One ``serve.sample`` range a step, each inside a ``serve.step``;
-    each group's ``serve.side_steps`` carries its request ids."""
-    lm, params = model
+    each group's ``serve.prefill`` (smollm: its request ids and the
+    padded batch's tokens, k × S) or ``serve.side_steps`` (xlstm: its
+    request ids) lies inside a ``serve.admit``."""
+    lm, params = _model(arch)
     groups: list = []
     with profile(activities=[ProfilerActivity.CPU],
                  record_shapes=True) as prof:
@@ -174,17 +270,23 @@ def test_chrome_trace_holds_the_ranges(model, tmp_path):
     sample = [e for e in ev if e["name"] == "serve.sample"]
     assert len(steps) == len(sample) == rep.steps
     assert all(any(_inside(s, st) for st in steps) for s in sample)
-    side = sorted((e for e in ev if e["name"] == "serve.side_steps"),
+    name = "serve.prefill" if arch == "smollm-135m" else "serve.side_steps"
+    side = sorted((e for e in ev if e["name"] == name),
                   key=lambda e: e["ts"])
     assert [e["args"]["rids"] for e in side] == \
         [",".join(str(r.rid) for r in g) for g in groups]
+    if name == "serve.prefill":
+        assert [e["args"]["tokens"] for e in side] == \
+            [len(g) * max(r.prompt_len for r in g) for g in groups]
+    assert not [e for e in ev if e["name"] in
+                {"serve.prefill", "serve.side_steps"} - {name}]
     admits = [e for e in ev if e["name"] == "serve.admit"]
     assert all(any(_inside(s, a) for a in admits) for s in side)
 
 
 def test_stall_counts_admission_while_running(model):
     """Two slots, one long request beside a short one; the short one's
-    slot then takes a request with a long prompt, whose side steps the
+    slot then takes a request with a long prompt, whose prefill the
     long request waits through.  Its ``stall_s`` is the admission time
     that passed between its first token and its last."""
     lm, params = model
@@ -240,13 +342,18 @@ CELLS = {
         trace_seconds=0.2), {"served_gap_mean": 1e9}),
 }
 NEW = {"launch_ms.serve", "sample_ms.serve", "side_step_ms.cont",
-       "stall_share.cont"}
+       "stall_share.cont", "prefill_ms.cont"}
+#: readers with nothing to read in a cell: smollm admits by the one-pass
+#: prefill, so the chat driver runs no side step
+SILENT = {"side_step_ms.cont"}
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_readers_return_a_number_from_a_cpu_run(cell):
     """Each new reader of the cell, as ``BENCHMARK.json`` lists it, reads
-    a number from one traced run of the cell's driver at a small size."""
+    a number from one traced run of the cell's driver at a small size,
+    ``prefill_ms.cont`` the chat driver's one-pass prefills; the side
+    step's reader reads nothing there (``SILENT``)."""
     import argparse
 
     from cardbench import harness as H
@@ -268,4 +375,7 @@ def test_readers_return_a_number_from_a_cpu_run(cell):
     out = R.one_run(args, files, torch.device("cpu"), time.perf_counter())
     for name in sorted(names):
         v = H.metric_reader(name).read(out["run"])
+        if name in SILENT:
+            assert v is None, name
+            continue
         assert isinstance(v, float) and math.isfinite(v) and v > 0, name
