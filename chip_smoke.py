@@ -49,7 +49,10 @@ d_ff 18432; vocab 129280; 27.82 B params, 55.6 GB).  On the card:
    cross-attention (Sq 1024 over Skv 1600, 32/8 heads, Dh 128,
    non-causal); flash attention and RMSNorm in bf16 at the groups of
    smollm's one-pass prefill (``PASS_SHAPES``: k prompts of S tokens,
-   RMSNorm over k·S rows);
+   RMSNorm over k·S rows); the grouped matmul and RMSNorm at the shapes
+   of deepseek-v2's expert-parallel decode step (``EPS_*``: 40 experts of
+   32 rows, most of them zero, every group size 32, one counted launch a
+   call; RMSNorm on 32 rows of 1536 and of 512);
    the mLSTM chunkwise
    kernel at B=4, S=1024, H=4, Dh=384, chunk 256 at 2e-3, the
    reference's tolerance for it (no single PyTorch call computes it, so
@@ -383,6 +386,11 @@ PROMPT_RANGE, GEN_RANGE = (16, 256), (32, 128)
 #: phase 5's (up to 8 prompts of 16-256 tokens) and the chat benchmark
 #: cell's (up to 32 of 4-473); RMSNorm runs over k·S rows there
 PASS_SHAPES = ((8, 16), (8, 256), (32, 4), (32, 16), (32, 473))
+#: expert-parallel serving of deepseek-v2 (``moe.moe_ffn_serve_ep``, the
+#: benchmark's 4-rank cell): a rank's 32 rows a decode step, its 40 of
+#: 160 experts, each taking the G·cap = 4 x 8 = 32 rows its sources' slots
+#: hold, every row counted live and most of them zero
+EPS_RANKS, EPS_ROWS, EPS_EXPERTS = 4, 32, 40
 #: xlstm serving traffic (phase 7)
 X_REQUESTS, X_PROMPT_RANGE, X_GEN_RANGE = 8, (16, 128), (16, 64)
 MARGIN = 0.05
@@ -789,6 +797,65 @@ def gmm_case(gs: torch.Tensor, C: int, D: int, F: int, dtype) -> dict:
     return rec
 
 
+def ep_serve_gmm_case(D: int, F: int, cap: int) -> dict:
+    """The grouped matmul as a rank of expert-parallel serving runs it: its
+    ``EPS_EXPERTS`` experts over ``C = EPS_RANKS·cap`` rows each, the
+    slots a source filled (0-3 of its ``cap``) first in its chunk, zero
+    rows after them, and every group size ``C``."""
+    E, G = EPS_EXPERTS, EPS_RANKS
+    C = G * cap
+    gen = torch.Generator(device=DEVICE).manual_seed(E * C + D + F)
+    x = torch.randn((E, G, cap, D), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    filled = torch.randint(0, 4, (E, G, 1, 1), generator=gen, device=DEVICE)
+    x = (x * (torch.arange(cap, device=DEVICE)[None, None, :, None]
+              < filled)).reshape(E, C, D)
+    w = torch.randn((E, D, F), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16) * D ** -0.5
+    gs = torch.full((E,), C, dtype=torch.int64, device=DEVICE)
+    tag = (f"moe_gmm E={E} C={C} D={D} F={F} bf16 (expert-parallel decode, "
+           f"{int((filled > 0).sum())} of {E * G} source chunks live)")
+    before = gmm_ops.moe_gmm.launches
+    got = gmm_ops.moe_gmm(x, w, gs, c_block=math.gcd(C, 128),
+                          f_block=math.gcd(F, 512), d_block=math.gcd(D, 512))
+    if gmm_ops.moe_gmm.launches != before + 1:
+        raise AssertionError(f"{tag}: not one counted launch per call")
+    err = check_close(tag, got, moe_gmm_ref(x, w, gs), torch.bfloat16)
+    zero = (x.float().abs().amax(-1) == 0)
+    if bool((got.float().abs().amax(-1)[zero] != 0).any()):
+        raise AssertionError(f"{tag}: a zero row gave a nonzero output")
+    nbytes = (E * C * D + E * D * F + E * C * F) * 2 + 8 * E
+    b, by = bound_ms(nbytes, 2.0 * E * C * D * F, torch.bfloat16)
+    rec = {"max_abs_err": err, "ms": time_ms(lambda: gmm_ops.moe_gmm(
+               x, w, gs, c_block=math.gcd(C, 128), f_block=math.gcd(F, 512),
+               d_block=math.gcd(D, 512)), iters=20),
+           "plain_ms": time_ms(lambda: moe_gmm_ref(x, w, gs), iters=3,
+                               warmup=1),
+           "library_ms": time_ms(lambda: torch.bmm(x, w), iters=20),
+           "library": "torch.bmm (all C rows)",
+           "bound_ms": b, "bound_by": by}
+    print(f"[kernels] {tag}: err {err:.3g}, kernel {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms, torch.bmm "
+          f"{rec['library_ms']:.4f} ms, bound {b:.3g} ms ({by})")
+    return rec
+
+
+def phase_ep_serve_kernels() -> dict:
+    """The kernels at the shapes of deepseek-v2's expert-parallel decode
+    step (``EPS_*``): both grouped-matmul products, and RMSNorm on the
+    rank's rows' compressed query (q_lora) and kv latent (kv_lora)."""
+    cfg = get_config(DS2)
+    D, Fe, m = cfg.d_model, cfg.moe.d_expert, cfg.mla
+    cap = capacity_of(EPS_ROWS, cfg.moe)
+    out = {("gmm", "ep_serve", 1): ep_serve_gmm_case(D, 2 * Fe, cap),
+           ("gmm", "ep_serve", 2): ep_serve_gmm_case(Fe, D, cap)}
+    for width in (m.q_lora, m.kv_lora):
+        out[("rmsnorm", EPS_ROWS, width, torch.bfloat16)] = rmsnorm_case(
+            EPS_ROWS, width, torch.bfloat16)
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels() -> dict:
     cfg = get_config(ARCH)
     D, H, KVH, Dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -846,6 +913,7 @@ def phase_kernels() -> dict:
         for R in (SLOTS, PREFILL_B * PREFILL_S):
             out[("rmsnorm", R, d, torch.bfloat16)] = rmsnorm_case(
                 R, d, torch.bfloat16)
+    out.update(phase_ep_serve_kernels())
     mb = jcfg.mamba
     for x_dtype in DTYPES:
         out[("ssd", x_dtype)] = ssd_case(PREFILL_B, PREFILL_S,
@@ -1642,6 +1710,12 @@ def run_phases(device: dict, dry: subprocess.Popen) -> int:
                 for arch in (DS2, DS3)
                 for R, mode in ((SLOTS, "decode"),
                                 (PREFILL_B * PREFILL_S, "prefill"))},
+             **{f"deepseek_v2_ep_decode_{w}": sub(
+                 ("rmsnorm", EPS_ROWS, w, torch.bfloat16),
+                 f"x ({EPS_ROWS}, {w}) bf16 (deepseek-v2 expert-parallel "
+                 "decode, a latent norm)", ("device_ms",))
+                for w in (get_config(DS2).mla.q_lora,
+                          get_config(DS2).mla.kv_lora)},
              **cases[("rmsnorm", SLOTS, torch.bfloat16)]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -1709,6 +1783,13 @@ def run_phases(device: dict, dry: subprocess.Popen) -> int:
                                       "bf16 (deepseek-v2 expert-parallel "
                                       "prefill, every row live)"),
                                   (2, "(160, 192, 1536) x (160, 1536, 5120) "
+                                      "bf16 (the same, second product)"))},
+             ep_serve={f"{('first', 'second')[n - 1]}": sub(
+                 ("gmm", "ep_serve", n), shape)
+                 for n, shape in ((1, "(40, 32, 5120) x (40, 5120, 3072) "
+                                      "bf16 (deepseek-v2 expert-parallel "
+                                      "decode, a rank's experts)"),
+                                  (2, "(40, 32, 1536) x (40, 1536, 5120) "
                                       "bf16 (the same, second product)"))},
              deepseek_v3=gmm_subs(DS3, cases, sub),
              **cases[("gmm", JARCH, "prefill", 1)]),

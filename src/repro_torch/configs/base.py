@@ -12,7 +12,7 @@ parameter paths and layer groups line up with the reference package.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field, fields, is_dataclass, replace
 from typing import Optional, Sequence
 
 
@@ -24,6 +24,15 @@ class MoEConfig:
     d_expert: int = 0          # expert intermediate dim
     capacity_factor: float = 1.25
     router_dtype: str = "f32"
+    # DeepSeek-V2's group-limited greedy routing (port only): the top
+    # ``topk_group`` of ``n_group`` expert groups, each scored by its best
+    # expert, then the top-k inside them; ``norm_topk`` False keeps the
+    # softmax gates unnormalised, times ``routed_scale``.  The defaults
+    # are the reference's softmax top-k, renormalised.
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk: bool = True
+    routed_scale: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -33,6 +42,44 @@ class MLAConfig:
     rope_dim: int = 64
     nope_dim: int = 128
     v_dim: int = 128
+    # port only: RMSNorm on the compressed query and on the kv latent
+    # (DeepSeek-V2's q_a_layernorm and kv_a_layernorm), and YaRN's rope:
+    # ``yarn`` (factor, original context, beta_fast, beta_slow,
+    # mscale_all_dim), ``None`` for plain RoPE and the plain softmax
+    # scale.  YaRN's cos/sin factor, the ratio of its attention factors at
+    # ``mscale`` and ``mscale_all_dim``, is 1 where the two are equal, as
+    # DeepSeek-V2 publishes them (0.707 both), so only the second is kept
+    latent_norm: bool = False
+    yarn: Optional[tuple] = None
+
+    def __post_init__(self):
+        if self.yarn is not None:
+            # a configuration file gives a list
+            object.__setattr__(self, "yarn", tuple(self.yarn))
+
+
+#: fields the reference's config schema lacks, by class: at their
+#: defaults (which keep the reference's behaviour) a config is the
+#: reference's (``reference_dict``)
+PORT_ONLY = {
+    "MoEConfig": ("n_group", "topk_group", "norm_topk", "routed_scale"),
+    "MLAConfig": ("latent_norm", "yarn"),
+}
+
+
+def reference_dict(cfg) -> dict:
+    """``dataclasses.asdict(cfg)`` without the port-only fields that sit
+    at their defaults: equal to the reference's ``asdict`` of the same
+    config wherever the port's fields keep the reference's behaviour."""
+    def walk(obj):
+        if not is_dataclass(obj):
+            return obj
+        skip = {f.name for f in fields(obj)
+                if f.name in PORT_ONLY.get(type(obj).__name__, ())
+                and getattr(obj, f.name) == f.default}
+        return {f.name: walk(getattr(obj, f.name)) for f in fields(obj)
+                if f.name not in skip}
+    return walk(cfg)
 
 
 @dataclass(frozen=True)

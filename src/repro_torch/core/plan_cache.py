@@ -57,6 +57,7 @@ from typing import Callable
 
 from .estimator import MeshSpec
 from .faults import fault_point
+from ..configs.base import reference_dict
 from .incremental import Snapshot
 from .plan import ShardingPlan
 from .verify import VerifyReport, verify_static
@@ -74,9 +75,11 @@ def config_fingerprint(cfg) -> str:
 
     Every field participates — two configs differing in one number get
     different fingerprints, so a cached plan can never be served to an
-    architecture it was not derived for."""
+    architecture it was not derived for — except the port-only fields at
+    their defaults (``configs.base.reference_dict``), so that a config
+    the reference also has keeps the reference's fingerprint."""
     if dataclasses.is_dataclass(cfg):
-        payload = dataclasses.asdict(cfg)
+        payload = reference_dict(cfg)
     elif isinstance(cfg, dict):
         payload = cfg
     else:

@@ -4,7 +4,9 @@
 ``make_host_mesh`` builds a ``DeviceMesh`` over the ranks of the
 initialised process group (one rank of its own where none exists),
 ``make_production_mesh`` the reference's 16x16 or 2x16x16 pod meshes,
-and ``set_mesh`` makes a mesh ambient to ``ShardingPlan.constrain``.
+``expert_mesh`` and ``expert_share`` the ``(world,)`` mesh and the
+rank's share of the experts of expert-parallel serving, and
+``set_mesh`` makes a mesh ambient to ``ShardingPlan.constrain``.
 Every mesh here is a function's result, never a module-level constant,
 so importing this module touches no process group.
 
@@ -83,6 +85,26 @@ def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
         raise ValueError(f"the production mesh {shape} needs "
                          f"{math.prod(shape)} ranks; the world has {world}")
     return make_host_mesh(shape, axes, device=device)
+
+
+def expert_mesh(device: str = "cuda"):
+    """The ``(world,)`` mesh over ``("experts",)`` of expert-parallel
+    serving: the process group's ranks, its group initialised from
+    ``torchrun``'s environment first where there is none."""
+    device_type = torch.device(device).type
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(BACKENDS[device_type])
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    return make_host_mesh((world,), ("experts",), device=device)
+
+
+def expert_share(mesh, axis: str = "experts"):
+    """This rank's ``moe.ExpertShare`` over ``axis`` of ``mesh``: the
+    ranks along it split every MoE layer's experts in order."""
+    from ..models.moe import ExpertShare, axes_group, mesh_sizes
+    group, order = axes_group(mesh, (axis,))
+    return ExpertShare(group, mesh_sizes(mesh)[axis],
+                       mesh.get_local_rank(axis), order)
 
 
 def mesh_spec(multi_pod: bool = False) -> MeshSpec:

@@ -16,6 +16,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch musicgen-large --smoke --device cpu
 
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --smoke --device cpu --ep
+
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch llama-3.2-vision-11b --smoke --device cpu
 
@@ -67,6 +70,20 @@ depth (jamba-v0.1-52b's 32 layers are 103 GB of bf16 weights); this
 entry point, like the reference's, has no depth option, and
 ``chip_smoke.py`` runs jamba at 16 layers, deepseek-v2 at 7 and
 deepseek-v3 at 5.
+
+``--ep`` serves an MoE model expert-parallel over the process group's
+ranks (under ``torchrun``; one rank of its own without it): a
+``("experts",)`` mesh of the world (``launch/mesh.expert_mesh``), each
+rank holding ``E / world`` experts of every MoE layer
+(``moe.ExpertShare``) and everything else whole, and serving its own
+requests on the static path, attention data-parallel.  Every MoE layer
+of every step, the decode step's included, exchanges its tokens with
+the other ranks (``moe.moe_ffn_serve_ep``), so all ranks step together:
+each serves the same lengths in the same waves (its own prompt tokens,
+from ``--seed`` and its rank), and so takes the same steps.  The
+replicated weights come from ``--seed``, each rank's experts from
+``--seed`` and its rank (``LM.init``).  Each rank prints the tokens of
+all ranks over its own time.
 """
 from __future__ import annotations
 
@@ -75,6 +92,8 @@ import os
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..configs import get_config, list_archs
 from ..configs.base import ShapeSpec
@@ -82,6 +101,7 @@ from ..core import (SINGLE_POD, MeshSpec, PlanCache, PlanKey, analyze_plan,
                     build_lm_graph, fetch_or_optimize, shape_bucket)
 from ..models.lm import LM
 from . import graphs
+from .mesh import expert_mesh, expert_share
 from .scheduler import ContinuousBatcher, Request, prefill_bucket, run_static
 
 
@@ -126,6 +146,24 @@ def make_trace(cfg, n_requests: int, *, seed: int,
         out.append({"prompt": prompt, "prompt_len": pl, "max_new": gen,
                     "temperature": temperature})
     return out
+
+
+def _own_prompts(trace: list[dict], vocab: int, seed: int,
+                 rank: int) -> None:
+    """Expert-parallel serving: this rank's prompts' tokens from its own
+    stream, the lengths left as every rank has them."""
+    rng = np.random.default_rng([seed, rank])
+    for t in trace:
+        if t["prompt"] is not None:
+            t["prompt"] = rng.integers(0, vocab,
+                                       t["prompt_len"]).astype(np.int32)
+
+
+def _all_ranks(n: int, device) -> int:
+    """``n`` summed over the process group's ranks."""
+    t = torch.tensor([n], dtype=torch.int64, device=device)
+    dist.all_reduce(t)
+    return int(t.item())
 
 
 def _static_requests(trace: list[dict]) -> list[Request]:
@@ -191,6 +229,9 @@ def main(argv=None) -> dict:
                     "(no hand-written kernels)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
+    ap.add_argument("--ep", action="store_true",
+                    help="serve an MoE model with its experts split over "
+                    "the ranks of the process group (static path)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -214,12 +255,16 @@ def main(argv=None) -> dict:
         plan_info["lint"] = {"ok": lint.ok,
                              "issues": [str(i) for i in lint.issues]}
         print(f"[serve] lint: {lint.summary()}")
-    lm = LM(cfg, use_kernels=not args.plain, device=args.device, plan=plan)
+    share = expert_share(expert_mesh(args.device)) if args.ep else None
+    lm = LM(cfg, use_kernels=not args.plain, device=args.device, plan=plan,
+            experts=share)
     params, _ = lm.init(args.seed)
     trace = make_trace(cfg, args.requests, seed=args.seed,
                        prompt_len_range=(pl_lo, pl_hi),
                        gen_range=(g_lo, g_hi),
                        temperature=args.temperature)
+    if share is not None:
+        _own_prompts(trace, cfg.vocab, args.seed, share.rank)
 
     before = graphs.stats()
     is_moe = any(ffn == "moe" for _, ffn in cfg.layer_kinds())
@@ -227,9 +272,13 @@ def main(argv=None) -> dict:
                      "use_kernels": lm.use_kernels,
                      "plan": {k: v for k, v in plan_info.items()
                               if k != "report"}}
+    if args.ep and not is_moe:
+        raise SystemExit(f"--ep: {args.arch} has no MoE layers")
     if is_moe:
         print(f"[serve] {args.arch} has MoE layers: static path only "
-              "(expert capacity couples batch rows)")
+              "(expert capacity couples batch rows)"
+              + (f"; experts split over {share.size} ranks, this rank "
+                 f"{share.rank}" if share is not None else ""))
     else:
         def run_once():
             b = ContinuousBatcher(lm, params, slots=args.slots,
@@ -255,6 +304,8 @@ def main(argv=None) -> dict:
         srep = run_static(lm, params, _static_requests(trace),
                           seed=args.seed, s_max=s_max, slots=args.slots,
                           eos_id=args.eos_id)
+        if share is not None:
+            srep.generated = _all_ranks(srep.generated, lm.device)
         metrics["static"] = srep.to_dict()
         print(f"[serve] static:     {_summary(srep)}")
         if "continuous" in metrics:

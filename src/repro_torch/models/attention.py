@@ -15,7 +15,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.plan import attend, project, relayout
-from .layers import F32, ParamBuilder, apply_rope, rope_angles
+from .layers import (F32, ParamBuilder, apply_norm, apply_rope, rope_angles,
+                     yarn_mscale)
 
 Constrain = Callable[..., torch.Tensor]
 _NEG = -1e30
@@ -317,12 +318,29 @@ def init_mla(pb: ParamBuilder, path: str, cfg: ArchConfig,
               ("heads", "kv_lora", "d_head"), stack=stack)
     pb.weight(f"{path}/w_o", (H, m.v_dim, D),
               ("heads", "d_head", "d_model"), stack=stack)
+    if m.latent_norm:
+        pb.ones(f"{path}/q_norm/scale", (m.q_lora,), ("q_lora",),
+                stack=stack)
+        pb.ones(f"{path}/kv_norm/scale", (m.kv_lora,), ("kv_lora",),
+                stack=stack)
+
+
+def mla_rope(m) -> tuple[tuple | None, float]:
+    """(YaRN's parameters for ``layers.rope_angles``, or ``None`` for
+    plain RoPE; the factor YaRN multiplies the softmax scale by, the
+    square of its attention factor at ``mscale_all_dim``, which
+    DeepSeek-V2's code applies to the scale)."""
+    if m.yarn is None:
+        return None, 1.0
+    ms = yarn_mscale(m.yarn[0], m.yarn[4])
+    return m.yarn, ms * ms
 
 
 def mla_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
                   positions: torch.Tensor, constrain: Constrain,
                   cache: KVCache | None = None,
                   active: torch.Tensor | None = None,
+                  use_kernels: bool = False,
                   ) -> tuple[torch.Tensor, KVCache | None]:
     """MLA with the latent cache.  Without a cache the keys and values are
     materialised per head (in f32 where ``S·S`` is at most
@@ -334,25 +352,41 @@ def mla_attention(x: torch.Tensor, p: dict, cfg: ArchConfig,
 
     Where the reference asks for an f32 result of bf16 operands
     (``preferred_element_type=F32``) the operands are cast to f32 and
-    multiplied in f32, where the products of bf16 values are exact."""
+    multiplied in f32, where the products of bf16 values are exact.
+
+    Port-only, under ``MLAConfig`` fields whose defaults leave all of the
+    above as it is (DeepSeek-V2 as published, arXiv:2405.04434):
+    ``latent_norm`` RMS-normalises the compressed query ``x @ w_q_a`` and
+    the latent's first ``kv_lora`` features (not its rope part) before
+    they are used or cached, through the RMSNorm kernel under
+    ``use_kernels``; ``yarn`` gives the rope YaRN's
+    frequencies and multiplies the softmax scale by ``mla_rope``'s
+    factor."""
     m = cfg.mla
     B, S, D = x.shape
     H = cfg.n_heads
     R, Dn = m.kv_lora, m.nope_dim
 
-    qa = x @ p["w_q_a"]
+    def norm(t, key):
+        return apply_norm("rms", t, p[key], use_kernels) if m.latent_norm \
+            else t
+
+    qa = norm(x @ p["w_q_a"], "q_norm")
     q = (qa @ p["w_q_b"].reshape(m.q_lora, -1)).reshape(B, S, H, -1)
     q_nope, q_pe = q[..., :Dn], q[..., Dn:]
     ckv_full = x @ p["w_kv_a"]
     q_nope = constrain(q_nope, ("batch", "seq", "heads", "d_head"), "q")
     ckv_full = constrain(ckv_full, ("batch", "kv_seq", "kv_lora"), "c_kv")
 
-    cos, sin = rope_angles(positions, m.rope_dim)
+    yarn, scale_mult = mla_rope(m)
+    cos, sin = rope_angles(positions, m.rope_dim, yarn=yarn)
     q_pe = apply_rope(q_pe, cos, sin, m.rope_dim)
     k_pe = apply_rope(ckv_full[:, :, None, R:], cos, sin,
                       m.rope_dim)[:, :, 0]
-    ckv = torch.cat([ckv_full[..., :R], k_pe], dim=-1)
+    ckv = torch.cat([norm(ckv_full[..., :R], "kv_norm"), k_pe], dim=-1)
     scale = math.sqrt(Dn + m.rope_dim)
+    if scale_mult != 1.0:
+        scale = scale / scale_mult
 
     new_cache = None
     if cache is not None:

@@ -11,6 +11,7 @@ and round once.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -45,9 +46,12 @@ class ParamBuilder:
 
     def weight(self, path: str, shape: Sequence[int], dims: Sequence[str],
                dtype=BF16, scale: float | None = None,
-               stack: int | None = None) -> None:
+               stack: int | None = None,
+               generator: torch.Generator | None = None) -> None:
         """Register a weight; ``stack`` prepends a layer-stack axis
-        (dims gets a leading "layers")."""
+        (dims gets a leading "layers"); ``generator`` draws it in place of
+        the builder's own."""
+        gen = self.generator if generator is None else generator
         shape = tuple(shape)
         fan_in = shape[0] if shape else 1
         std = scale if scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
@@ -56,7 +60,7 @@ class ParamBuilder:
         if self.device.type == "meta":
             leaf = torch.empty(full, dtype=dtype, device=self.device)
         elif np.prod(full) <= _DRAW_CHUNK:
-            leaf = (torch.randn(full, generator=self.generator, dtype=F32,
+            leaf = (torch.randn(full, generator=gen, dtype=F32,
                                 device=self.device) * std).to(dtype)
         else:
             # drawn in f32 pieces, so a leaf of billions of elements (an
@@ -66,8 +70,7 @@ class ParamBuilder:
             for i in range(0, flat.numel(), _DRAW_CHUNK):
                 n = min(_DRAW_CHUNK, flat.numel() - i)
                 flat[i:i + n] = torch.randn(
-                    n, generator=self.generator, dtype=F32,
-                    device=self.device) * std
+                    n, generator=gen, dtype=F32, device=self.device) * std
         _set(self.params, path, leaf)
         _set(self.dims, path, full_dims)
 
@@ -150,19 +153,52 @@ def init_norm(pb: ParamBuilder, path: str, kind: str, d: int,
 # Rotary position embeddings (with partial-rotary support)
 # --------------------------------------------------------------------------
 
-#: (rot_dim, base, device) → the f32 inverse frequencies on that device
+#: (rot_dim, base, device), with YaRN's parameters after it where given →
+#: the f32 inverse frequencies on that device
 _INV_FREQ: dict[tuple, torch.Tensor] = {}
 
 
-def _inv_freq(rot_dim: int, base: float, device: torch.device
-              ) -> torch.Tensor:
-    """The inverse frequencies, built once per (rot_dim, base, device):
-    a copy from the host inside a decode step would stall it, and a CUDA
-    graph capture refuses one."""
-    key = (rot_dim, base, device)
+def yarn_inv_freq(rot_dim: int, base: float, yarn: tuple) -> np.ndarray:
+    """YaRN's inverse frequencies in float64 (arXiv:2309.00071; the
+    published DeepSeek-V2 code): ``yarn`` is (factor, original context,
+    beta_fast, beta_slow, ...), any further entries read elsewhere.  Each
+    frequency is blended between its extrapolated value ``base^(-2i/d)``
+    and its interpolated value, that over ``factor``, by a ramp over the
+    pair index ``i`` from the pair that turns ``beta_fast`` times over the
+    original context (and every faster one: extrapolated) to the one that
+    turns ``beta_slow`` times (and every slower one: interpolated)."""
+    factor, orig, fast, slow = yarn[:4]
+
+    def pair_of(turns):
+        return rot_dim * math.log(orig / (turns * 2 * math.pi)) \
+            / (2 * math.log(base))
+    lo = max(math.floor(pair_of(fast)), 0)
+    hi = min(math.ceil(pair_of(slow)), rot_dim - 1)
+    if lo == hi:
+        hi += 0.001
+    ramp = np.clip((np.arange(rot_dim // 2, dtype=np.float64) - lo)
+                   / (hi - lo), 0.0, 1.0)
+    extra = 1.0 / (base ** (np.arange(0, rot_dim, 2) / rot_dim))
+    return extra / factor * ramp + extra * (1.0 - ramp)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1·mscale·ln(factor) + 1`` (1 where
+    ``factor`` <= 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _inv_freq(rot_dim: int, base: float, device: torch.device,
+              yarn: tuple | None = None) -> torch.Tensor:
+    """The inverse frequencies, built once per (rot_dim, base, yarn,
+    device): a copy from the host inside a decode step would stall it,
+    and a CUDA graph capture refuses one."""
+    key = (rot_dim, base, device) if yarn is None else \
+        (rot_dim, base, device, yarn)
     inv_t = _INV_FREQ.get(key)
     if inv_t is None:
-        inv = 1.0 / (base ** (np.arange(0, rot_dim, 2) / rot_dim))
+        inv = (1.0 / (base ** (np.arange(0, rot_dim, 2) / rot_dim))
+               if yarn is None else yarn_inv_freq(rot_dim, base, yarn))
         inv_t = torch.tensor(inv, dtype=F32, device=device)
         if not is_fake(inv_t):
             # a fake tensor (the dry-run's) lives only as long as its mode
@@ -171,12 +207,14 @@ def _inv_freq(rot_dim: int, base: float, device: torch.device
 
 
 def rope_angles(positions: torch.Tensor, rot_dim: int,
-                base: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+                base: float = 10000.0, yarn: tuple | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """positions (..., S) → cos/sin (..., S, rot_dim//2).  The inverse
     frequencies come from numpy in float64, as in the reference, and the
-    product with the positions is taken in f32."""
+    product with the positions is taken in f32.  ``yarn`` (see
+    :func:`yarn_inv_freq`) gives YaRN's frequencies."""
     ang = positions[..., None].to(F32) * _inv_freq(rot_dim, base,
-                                                   positions.device)
+                                                   positions.device, yarn)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -61,7 +61,7 @@ from .attention import (KVCache, fill_slots, gqa_attention, init_gqa,
                         init_mla, mla_attention)
 from .layers import (BF16, F32, ParamBuilder, apply_norm, cross_entropy,
                      init_mlp, init_norm, mlp)
-from .moe import MoEAux, init_moe, moe_ffn
+from .moe import MoEAux, init_moe, moe_ffn, moe_ffn_serve_ep
 from .ssm import SSMState, init_mamba, mamba_block
 from .xlstm import (MLSTMState, SLSTMState, init_mlstm, init_slstm,
                     mlstm_block, slstm_block)
@@ -153,6 +153,10 @@ class LM:
     #: the ``DeviceMesh`` of the expert-parallel MoE path (``_ep``); the
     #: drivers build the LM without one, as the reference's do
     mesh: Any = None
+    #: a ``moe.ExpertShare``: the model served expert-parallel, its MoE
+    #: layers holding this rank's experts only and running
+    #: ``moe_ffn_serve_ep`` (the reference has no such path)
+    experts: Any = None
 
     def __post_init__(self):
         if self.remat not in REMATS:
@@ -197,7 +201,8 @@ class LM:
         return (baxes, eaxes, saxes, self.mesh, tp)
 
     # -- init --------------------------------------------------------------------
-    def _build(self, pb: ParamBuilder) -> tuple[dict, dict]:
+    def _build(self, pb: ParamBuilder, expert_gen: torch.Generator | None
+               = None) -> tuple[dict, dict]:
         cfg = self.cfg
         if cfg.frontend != "audio_frames":
             pb.weight("embed", (cfg.vocab, cfg.d_model),
@@ -226,7 +231,10 @@ class LM:
                     init_mlp(pb, f"{pfx}/ffn", cfg.d_model,
                              cfg.dense_d_ff or cfg.d_ff, stack=stack)
                 elif ffn == "moe":
-                    init_moe(pb, f"{pfx}/ffn", cfg, stack=stack)
+                    init_moe(pb, f"{pfx}/ffn", cfg, stack=stack,
+                             held=(self.experts.local(cfg.moe.n_experts)
+                                   if self.experts is not None else None),
+                             generator=expert_gen)
         init_norm(pb, "final_norm", cfg.norm, cfg.d_model)
         if not cfg.tie_embeddings:
             pb.weight("head", (cfg.d_model, cfg.vocab), ("d_model", "vocab"),
@@ -243,9 +251,16 @@ class LM:
     def init(self, seed: int = 0) -> tuple[dict, dict]:
         """Returns (params, dims), drawn on the model's device from a
         ``torch.Generator`` seeded with ``seed``, at the reference's
-        stds."""
+        stds.  A model served expert-parallel draws its rank's experts
+        from a generator of their own, seeded with ``seed`` and the rank,
+        so the ranks hold different experts and the same everything
+        else."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return self._build(ParamBuilder(gen, device=self.device))
+        expert_gen = None
+        if self.experts is not None:
+            expert_gen = torch.Generator(device=self.device).manual_seed(
+                seed * 1009 + self.experts.rank + 1)
+        return self._build(ParamBuilder(gen, device=self.device), expert_gen)
 
     def init_abstract(self) -> tuple[dict, dict]:
         """(params, dims) with every param on the meta device: paths,
@@ -317,7 +332,8 @@ class LM:
         aux = None
         if mix in ("attn", "xattn") and cfg.mla is not None:
             out, new_cache = mla_attention(x, bp["mix"], cfg, positions, c,
-                                           cache=cache, active=active)
+                                           cache=cache, active=active,
+                                           use_kernels=self.use_kernels)
         elif mix in ("attn", "xattn"):
             # a pass that fills decode caches (keep_kv) takes the flash
             # kernel only where it is one, on the card: the kernel's plain
@@ -360,6 +376,11 @@ class LM:
             x2 = self._norm(resid, bp["norm2"], merge=False)
             resid = resid + relayout(mlp(x2, bp["ffn"], c), "like",
                                      resid)
+        elif ffn == "moe" and self.experts is not None:
+            x2 = self._norm(resid, bp["norm2"])
+            moe_out, aux = moe_ffn_serve_ep(x2, bp["ffn"], cfg, self.experts,
+                                            use_kernels=self.use_kernels)
+            resid = resid + moe_out
         elif ffn == "moe":
             x2 = self._norm(resid, bp["norm2"])
             moe_out, aux = moe_ffn(x2, bp["ffn"], cfg, c,

@@ -11,6 +11,14 @@ which run them densely, and a second ``all_to_all`` ships the results
 home.  The mesh is a ``torch.distributed`` ``DeviceMesh``; the body runs
 through ``local_map``, the counterpart of ``shard_map``.
 
+A model served expert-parallel (``LM(experts=ExpertShare(...))``; the
+reference has no such path) holds its rank's experts only and takes
+``moe_ffn_serve_ep`` in every MoE layer, the decode step's included:
+the same dispatch, exchange and expert products, over plain tensors and
+a process group, at the single-card capacity rule per source.  Routing
+has DeepSeek-V2's group-limited form under ``MoEConfig`` fields whose
+defaults keep the reference's (``router_topk``).
+
 Two departures, both where the reference's result is unspecified:
 
 * The dispatch buffer receives the kept (token, k) copies only.  The
@@ -30,7 +38,8 @@ Two departures, both where the reference's result is unspecified:
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -50,15 +59,22 @@ class MoEAux(NamedTuple):
 
 
 def init_moe(pb: ParamBuilder, path: str, cfg: ArchConfig,
-             stack: int | None = None) -> None:
+             stack: int | None = None, held: int | None = None,
+             generator: torch.Generator | None = None) -> None:
+    """The router over all experts; ``held`` experts' matrices (all of
+    them by default; a rank's share under expert-parallel serving), drawn
+    from ``generator`` where one is given."""
     moe = cfg.moe
     D, E, Fe = cfg.d_model, moe.n_experts, moe.d_expert
+    El = E if held is None else held
     pb.weight(f"{path}/w_router", (D, E), ("d_model", "experts"),
               dtype=F32, stack=stack)
-    pb.weight(f"{path}/w_in", (E, D, 2, Fe),
-              ("experts", "d_model", "two", "d_ff"), stack=stack)
-    pb.weight(f"{path}/w_out", (E, Fe, D),
-              ("experts", "d_ff", "d_model"), stack=stack)
+    pb.weight(f"{path}/w_in", (El, D, 2, Fe),
+              ("experts", "d_model", "two", "d_ff"), stack=stack,
+              generator=generator)
+    pb.weight(f"{path}/w_out", (El, Fe, D),
+              ("experts", "d_ff", "d_model"), stack=stack,
+              generator=generator)
     if moe.n_shared:
         Fs = moe.n_shared * Fe
         pb.weight(f"{path}/w_shared_in", (D, 2, Fs),
@@ -69,13 +85,33 @@ def init_moe(pb: ParamBuilder, path: str, cfg: ArchConfig,
 
 def router_topk(x: torch.Tensor, w_router: torch.Tensor, moe: MoEConfig
                 ) -> tuple[torch.Tensor, torch.Tensor, MoEAux]:
-    """(T,D) → gates (T,K), expert ids (T,K), aux losses."""
+    """(T,D) → gates (T,K), expert ids (T,K), aux losses.
+
+    With ``moe.n_group`` > 1, DeepSeek-V2's group-limited greedy routing
+    (its ``group_limited_greedy``): the experts fall in ``n_group``
+    groups of consecutive ids, each scored by its best softmax
+    probability; a token picks its top ``topk_group`` groups, then its
+    top-k experts among theirs.  ``norm_topk`` False leaves the gates
+    unnormalised and multiplies them by ``routed_scale``.  The aux losses
+    read the unmasked probabilities either way."""
     logits = (x.to(F32) @ w_router).to(F32)               # (T,E)
     probs = torch.softmax(logits, dim=-1)
-    gate, idx = torch.topk(probs, moe.top_k, dim=-1)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    # Switch-style load-balance loss + z-loss.
     E = w_router.shape[-1]
+    chosen = probs
+    if moe.n_group > 1:
+        T = probs.shape[0]
+        best = probs.view(T, moe.n_group, -1).amax(-1)     # (T, n_group)
+        groups = torch.topk(best, moe.topk_group, dim=-1).indices
+        allowed = torch.zeros_like(best, dtype=torch.bool).scatter_(
+            1, groups, True)
+        chosen = probs.masked_fill(
+            ~allowed.repeat_interleave(E // moe.n_group, dim=1), 0.0)
+    gate, idx = torch.topk(chosen, moe.top_k, dim=-1)
+    if moe.norm_topk:
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    else:
+        gate = gate * moe.routed_scale
+    # Switch-style load-balance loss + z-loss.
     me = probs.mean(0)
     ce = F.one_hot(idx, E).to(F32).sum(1).mean(0)
     lb = E * torch.sum(me * ce) / moe.top_k
@@ -254,6 +290,59 @@ def _exchange(t: torch.Tensor, group, order: list) -> torch.Tensor:
     return out
 
 
+def _experts_over(payload: torch.Tensor, w_in: torch.Tensor,
+                  w_out: torch.Tensor, G: int, group, order: list,
+                  use_kernels: bool, tp_group=None) -> torch.Tensor:
+    """The expert-parallel middle of a layer: a source's (E, cap, D)
+    dispatch buffer goes out to the experts' owners (``G`` ranks of
+    ``group``, ``E / G`` experts each, ``w_in``/``w_out`` this rank's),
+    each rank runs its experts' SwiGLU over the ``G·cap`` rows every
+    source sent it, and the results come home: (E·cap, D), row
+    ``e·cap + slot`` the output of the row the source put there.  With
+    ``use_kernels`` both products run the grouped-matmul kernel with
+    every row live (rows from several sources are no one live prefix; a
+    zero row gives a zero output).  ``tp_group`` sums the partial outputs
+    of an expert's d_ff split over it before they go home."""
+    from torch.distributed.nn.functional import all_reduce
+    E, cap, D = payload.shape
+    E_loc = E // G
+    # (E, cap, D) -> (G, E_loc, cap, D): exchange source <-> group
+    recv = _exchange(payload.view(G, E_loc, cap, D), group, order)
+    toks = recv.transpose(0, 1).reshape(E_loc, G * cap, D)
+    Fl = w_in.shape[-1]
+    gs = (torch.full((E_loc,), G * cap, dtype=torch.int64,
+                     device=payload.device) if use_kernels else None)
+    h = _expert_matmul(toks, w_in.reshape(E_loc, D, 2 * Fl), gs) \
+        .view(E_loc, G * cap, 2, Fl)
+    act = F.silu(h[..., 0, :].to(F32)).to(payload.dtype) * h[..., 1, :]
+    out = _expert_matmul(act, w_out, gs)
+    if tp_group is not None:
+        # d_ff is column-split over tp_axis: w_in produced a local
+        # hidden slice, w_out contracted it -> partial sums
+        out = all_reduce(out, group=tp_group)
+    back = out.view(E_loc, G, cap, D).transpose(0, 1)
+    return _exchange(back, group, order).reshape(E * cap, D)
+
+
+def _combine(buf: torch.Tensor, eid: torch.Tensor, slot: torch.Tensor,
+             keep: torch.Tensor, gate: torch.Tensor, K: int,
+             cap: int) -> torch.Tensor:
+    """(T, D): each token's kept copies from the (E·cap, D) results
+    ``buf``, weighted by their gates and summed over k."""
+    got = buf[eid * cap + slot]                            # (T*K, D)
+    got = torch.where(keep[:, None], got, 0)
+    got = got * gate.reshape(-1)[:, None].to(buf.dtype)
+    return got.reshape(-1, K, buf.shape[-1]).sum(dim=1)
+
+
+def _shared_experts(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """The shared experts' SwiGLU of ``x`` (..., D), every token."""
+    ws = p["w_shared_in"]
+    hs = (x @ ws.reshape(ws.shape[0], -1)).unflatten(-1, ws.shape[1:])
+    acts = F.silu(hs[..., 0, :].to(F32)).to(x.dtype) * hs[..., 1, :]
+    return acts @ p["w_shared_out"]
+
+
 def _replicated_over(mesh, used: tuple[str, ...]) -> tuple[str, ...]:
     """The mesh axes that a spec naming ``used`` leaves replicated."""
     return tuple(a for a in mesh.mesh_dim_names if a not in used)
@@ -305,7 +394,6 @@ def moe_ffn_ep(x: torch.Tensor, p: dict, cfg: ArchConfig,
     E, K = moe.n_experts, moe.top_k
     sizes = mesh_sizes(mesh)
     G = math.prod(sizes[a] for a in expert_axes)
-    E_loc = E // G
     ep_group, order = axes_group(mesh, tuple(expert_axes))
     tp_group = mesh.get_group(tp_axis) if tp_axis is not None else None
     paxes = tuple(dict.fromkeys(tuple(batch_axes) + tuple(seq_axes)
@@ -344,26 +432,9 @@ def moe_ffn_ep(x: torch.Tensor, p: dict, cfg: ArchConfig,
         cap = max(1, math.ceil(T_loc * K * moe.capacity_factor / E))
         eid, slot, keep = dispatch_indices(idx, E, cap)
         payload = dispatch(xt, K, eid, slot, keep, E, cap)
-        # (E, cap, D) -> (G, E_loc, cap, D): exchange source <-> group
-        recv = _exchange(payload.view(G, E_loc, cap, D), ep_group, order)
-        toks = recv.transpose(0, 1).reshape(E_loc, G * cap, D)
-        Fl = w_in.shape[-1]
-        gs = (torch.full((E_loc,), G * cap, dtype=torch.int64,
-                         device=x_loc.device) if use_kernels else None)
-        h = _expert_matmul(toks, w_in.reshape(E_loc, D, 2 * Fl), gs) \
-            .view(E_loc, G * cap, 2, Fl)
-        act = F.silu(h[..., 0, :].to(F32)).to(x_loc.dtype) * h[..., 1, :]
-        out = _expert_matmul(act, w_out, gs)
-        if tp_group is not None:
-            # d_ff is column-split over tp_axis: w_in produced a local
-            # hidden slice, w_out contracted it -> partial sums
-            out = all_reduce(out, group=tp_group)
-        back = out.view(E_loc, G, cap, D).transpose(0, 1)
-        buf = _exchange(back, ep_group, order).reshape(E * cap, D)
-        got = buf[eid * cap + slot]                        # (T*K, D)
-        got = torch.where(keep[:, None], got, 0)
-        got = got * gate.reshape(-1)[:, None].to(x_loc.dtype)
-        y = got.reshape(T_loc, K, D).sum(dim=1).reshape(Bl, Sl, D)
+        buf = _experts_over(payload, w_in, w_out, G, ep_group, order,
+                            use_kernels, tp_group)
+        y = _combine(buf, eid, slot, keep, gate, K, cap).reshape(Bl, Sl, D)
         dropped = 1.0 - torch.mean(keep.to(F32))
         means = all_reduce(torch.stack([aux.load_balance_loss,
                                         aux.router_z_loss, dropped]),
@@ -381,11 +452,79 @@ def moe_ffn_ep(x: torch.Tensor, p: dict, cfg: ArchConfig,
     y, aux = fn(x, p["w_router"], p["w_in"], p["w_out"])
 
     if moe.n_shared:
-        ws = p["w_shared_in"]
-        hs = (x @ ws.reshape(D, -1)).unflatten(-1, ws.shape[1:])
-        acts = F.silu(hs[..., 0, :].to(F32)).to(x.dtype) * hs[..., 1, :]
-        y = y + acts @ p["w_shared_out"]
+        y = y + _shared_experts(x, p)
     return y, aux
+
+
+@dataclass
+class ExpertShare:
+    """This rank's share of every MoE layer's routed experts when a model
+    is served expert-parallel (``LM(experts=...)``): ``size`` ranks of
+    ``group`` hold ``E / size`` consecutive experts each, this one those
+    from ``rank · E / size``; ``order`` as :func:`axes_group` gives it.
+    ``counters``, off (``None``) by default, is an int64 ``(size + 1,)``
+    tensor on the device that each layer's exchange adds to: at ``g`` the
+    kept (token, k) copies this rank sent to rank ``g``'s experts (summed
+    over the ranks: the rows each rank's experts received), at ``size``
+    the copies this rank dropped at the capacity.  In a CUDA graph the
+    additions are captured, one per layer a step; :meth:`count` turns
+    them on before the model's graphs are captured."""
+    group: Any
+    size: int
+    rank: int
+    order: list
+    counters: torch.Tensor | None = None
+
+    def local(self, E: int) -> int:
+        """Experts a rank holds of a layer of ``E``."""
+        if E % self.size:
+            raise ValueError(f"{E} experts do not split over {self.size} "
+                             "ranks")
+        return E // self.size
+
+    def count(self, device) -> torch.Tensor:
+        """Turns the counters on (zeros) and returns them."""
+        self.counters = torch.zeros(self.size + 1, dtype=torch.int64,
+                                    device=device)
+        return self.counters
+
+
+def moe_ffn_serve_ep(x: torch.Tensor, p: dict, cfg: ArchConfig,
+                     share: ExpertShare, use_kernels: bool = False
+                     ) -> tuple[torch.Tensor, MoEAux]:
+    """The MoE FFN of a model served expert-parallel, the decode step's
+    (S = 1) included, which ``ep_applies`` keeps from ``moe_ffn_ep`` (the
+    reference's rule).  ``x`` (B, S, D) is this rank's own rows and
+    ``p`` holds the whole router and this rank's experts (``w_in``
+    (E/G, D, 2, Fe), ``w_out`` (E/G, Fe, D)).  The rank routes its
+    ``T = B·S`` tokens over all E experts, slots them per expert at
+    ``capacity_of(T)`` per source (token-major; the rest dropped, so a
+    rank's drops depend on its own rows alone), ships them to the
+    experts' owners, runs its experts on the rows it received, ships the
+    results home (``_experts_over``) and combines them with the gates;
+    the shared experts run here, on its own rows.  Every rank of the
+    group must call it with the same shapes, in step."""
+    moe = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    E, K = moe.n_experts, moe.top_k
+    cap = capacity_of(T, moe)
+    xt = x.reshape(T, D)
+    gate, idx, aux = router_topk(xt, p["w_router"], moe)
+    eid, slot, keep = dispatch_indices(idx, E, cap)
+    payload = dispatch(xt, K, eid, slot, keep, E, cap)
+    buf = _experts_over(payload, p["w_in"], p["w_out"], share.size,
+                        share.group, share.order, use_kernels)
+    y = _combine(buf, eid, slot, keep, gate, K, cap)
+    if share.counters is not None:
+        sent = torch.zeros(E, dtype=torch.int64, device=x.device) \
+            .index_add_(0, eid, keep.to(torch.int64))
+        share.counters[:share.size].add_(sent.view(share.size, -1).sum(1))
+        share.counters[share.size].add_((~keep).sum())
+    if moe.n_shared:
+        y = y + _shared_experts(xt, p)
+    dropped = 1.0 - torch.mean(keep.to(F32))
+    return y.reshape(B, S, D), aux._replace(dropped_fraction=dropped)
 
 
 def ep_applies(ep, x_shape, moe: MoEConfig) -> bool:
@@ -457,10 +596,7 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, constrain: Constrain,
     combined = back.reshape(T, K, D).sum(dim=1)
 
     if moe.n_shared:
-        ws = p["w_shared_in"]
-        hs = (xt @ ws.reshape(D, -1)).unflatten(-1, ws.shape[1:])
-        acts = F.silu(hs[..., 0, :].to(F32)).to(x.dtype) * hs[..., 1, :]
-        combined = combined + acts @ p["w_shared_out"]
+        combined = combined + _shared_experts(xt, p)
 
     dropped = 1.0 - torch.mean(keep.to(F32))
     aux = aux._replace(dropped_fraction=dropped)

@@ -5,6 +5,7 @@ import pytest
 
 from repro import configs as jcfg
 from repro_torch import configs as tcfg
+from repro_torch.configs import base as tbase
 
 ARCHS = jcfg.list_archs()
 
@@ -20,7 +21,13 @@ def test_registry_lists_the_same_archs():
 def test_config_and_layer_groups_match(arch, smoke):
     ref = jcfg.get_config(arch, smoke=smoke)
     got = tcfg.get_config(arch, smoke=smoke)
-    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    # the port's own fields (``configs.base.PORT_ONLY``) sit at their
+    # defaults in every preset, and the rest is the reference's config
+    assert tbase.reference_dict(got) == dataclasses.asdict(ref)
+    for sub in (got.moe, got.mla):
+        for name in tbase.PORT_ONLY.get(type(sub).__name__, ()):
+            default = type(sub).__dataclass_fields__[name].default
+            assert getattr(sub, name) == default, (arch, name)
     assert got.layer_groups() == ref.layer_groups()
     assert got.layer_kinds() == ref.layer_kinds()
     assert got.resolved_head_dim == ref.resolved_head_dim

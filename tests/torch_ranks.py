@@ -22,6 +22,13 @@ what they found to OUT.json.  Modes:
   (``tests/test_torch_compression.py``).
 * ``gpipe``: ``gpipe`` over a ``("pod",)`` mesh of the world
   (``tests/test_torch_gpipe.py``).
+* ``ep_serve``: a DeepSeek model served expert-parallel over an
+  ``("experts",)`` mesh of the world (``LM(experts=...)``), each rank
+  holding its share of the experts drawn by the benchmark's rule, against
+  the plain reference ``cardbench/reference/deepseek_v2.py`` computed in
+  the rank (``tests/test_torch_ep_serve.py``): every position's logits of
+  decode steps through the latent cache, the full-sequence prefill's last
+  logits, and one MoE layer's experts rank by rank.
 * ``layouts``: an LM's loss and gradients on a ``(2, 2)`` mesh, its
   params and batch placed by each of IN.json's hand-written plans (FSDP
   on), against the same LM without a mesh
@@ -454,6 +461,77 @@ def layouts_body(rank: int, spec: dict) -> dict:
     return out
 
 
+def ep_serve_body(rank: int, spec: dict) -> dict:
+    import dataclasses
+    sys.path.insert(0, str(SRC.parent))
+    from cardbench import harness as H
+    from cardbench.reference import deepseek_v2 as D2
+    from repro_torch.launch.mesh import expert_mesh, expert_share
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.lm import LM
+
+    arch, seed = spec["arch"], spec["seed"]
+    B, L = spec["batch"], spec["length"]
+    cfg = H.arch_config(arch)
+    share = expert_share(expert_mesh("cpu"))
+    El = share.local(cfg.moe.n_experts)
+    experts = range(rank * El, (rank + 1) * El)
+    lm = LM(cfg, device="cpu", experts=share)
+    params = H.nest(D2.make_params(arch, seed, "cpu", experts))
+    want = {p: (tuple(t.shape), t.dtype) for p, t in
+            H.flatten(lm.param_shapes()).items()}
+    got = {p: (tuple(t.shape), t.dtype) for p, t in
+           H.flatten(params).items()}
+    assert got == want, sorted(set(got.items()) ^ set(want.items()))[:4]
+    ref = D2.DeepSeekV2Ref(arch, seed, "cpu")
+    gen = torch.Generator().manual_seed(seed * 7 + rank)
+    tokens = torch.randint(0, cfg.vocab, (B, L), generator=gen)
+    out = {}
+    with torch.no_grad():
+        # decode steps from position 0, the static path's prefill and
+        # decode, through the latent cache
+        caches = lm.init_caches(B, L)
+        steps = []
+        for t in range(L):
+            lg, caches = lm.decode_step(
+                params, {"tokens": tokens[:, t:t + 1],
+                         "pos": torch.tensor(t, dtype=torch.int32)}, caches)
+            steps.append(lg.float())
+        stepped = torch.cat(steps, 1)
+        want_steps = ref.forward(tokens, "position")
+        out["decode_gaps"] = (stepped - want_steps).abs().amax(-1) \
+            .flatten().tolist()
+        out["decode_scale"] = float(want_steps.abs().max())
+        pre = lm.prefill(params, {"tokens": tokens}).float()[:, 0]
+        want_pre = ref.forward(tokens, "sequence")[:, -1]
+        out["prefill_gaps"] = (pre - want_pre).abs().amax(-1).tolist()
+        # one MoE layer: the ranks' experts, rank by rank, and the shared
+        # experts once, against the uncut layer
+        pfx = "group1/b0"
+        lp = {k: v[0] for k, v in params["group1"]["b0"]["ffn"].items()}
+        x = torch.randn(1, B * 2, cfg.d_model,
+                        generator=torch.Generator().manual_seed(seed)
+                        ).to(torch.bfloat16)
+        alone = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_shared=0))
+        parts = []
+        for r in range(share.size):
+            pr = dict(lp, w_out=lp["w_out"] if r == rank
+                      else torch.zeros_like(lp["w_out"]))
+            parts.append(tmoe.moe_ffn_serve_ep(x, pr, alone, share)[0])
+        whole = tmoe.moe_ffn_serve_ep(x, lp, cfg, share)[0]
+        summed = sum(p.float() for p in parts) \
+            + tmoe._shared_experts(x, lp).float()
+        w = ref.weights(pfx, 0)
+        uncut = ref.moe(x.float(), w, "sequence") + ref.swiglu(
+            x.float(), w["ffn/w_shared_in"], w["ffn/w_shared_out"])
+        out["shares_gap"] = float((summed - uncut).abs().max())
+        out["shares_whole_gap"] = float((summed - whole.float()).abs()
+                                        .max())
+        out["moe_scale"] = float(uncut.abs().max())
+    return out
+
+
 def _rebuild_detached(tree):
     if isinstance(tree, dict):
         return {k: _rebuild_detached(v) for k, v in tree.items()}
@@ -469,7 +547,7 @@ def main() -> None:
         spec = json.loads(Path(src).read_text())
         body = {"mesh": mesh_body, "train": train_body, "ep": ep_body,
                 "compress": compress_body, "gpipe": gpipe_body,
-                "layouts": layouts_body}[mode]
+                "layouts": layouts_body, "ep_serve": ep_serve_body}[mode]
         result = body(rank, spec)
     finally:
         dist.destroy_process_group()
