@@ -1233,25 +1233,36 @@ def _first_divergence(streamed: list[int], offline: list[int]) -> int | None:
 
 
 class Margins:
-    """Records the top-2 logit margin of every token the scheduler draws,
-    per request in draw order, by wrapping ``scheduler._sample`` (host
-    code, outside any graph)."""
+    """Records the top-2 logit margin of every token the scheduler chooses,
+    per request in draw order, by wrapping ``scheduler._Tokens`` (host
+    code, outside any graph), where every token is chosen: greedy rows
+    on the card by the device's argmax, which never calls ``_sample``.
+    Each step's margins come from one ``topk`` on the device."""
 
     def __init__(self):
         self.by_rid: dict[int, list[float]] = {}
-        self._orig = sched._sample
+        self._orig = sched._Tokens
 
-    def _record(self, row, seed, rid, pos, temperature):
-        top2 = np.partition(row, -2)[-2:]
-        self.by_rid.setdefault(rid, []).append(float(top2[1] - top2[0]))
-        return self._orig(row, seed, rid, pos, temperature)
+    def _tokens(self):
+        by_rid, base = self.by_rid, self._orig
+
+        class Recorded(base):
+            def __init__(self, rows, temperatures, seed):
+                super().__init__(rows, temperatures, seed)
+                top2 = torch.topk(rows.float(), 2, dim=-1).values
+                self.margins = (top2[:, 0] - top2[:, 1]).tolist()
+
+            def take(self, i, rid, pos, rep=None):
+                by_rid.setdefault(rid, []).append(self.margins[i])
+                return super().take(i, rid, pos, rep)
+        return Recorded
 
     def run(self, fn):
-        sched._sample = self._record
+        sched._Tokens = self._tokens()
         try:
             return fn()
         finally:
-            sched._sample = self._orig
+            sched._Tokens = self._orig
 
 
 @dataclasses.dataclass

@@ -49,11 +49,20 @@ tokens do not depend on its co-tenants and the whole trace replays from
 ``seed``.  The draws are not JAX's: sampled tokens are held to this
 package's own offline decode, greedy tokens to the reference's.
 
+Tokens (:class:`_Tokens`, the one rule for every step's logits): on the
+card a greedy row (temperature 0) takes the device's argmax, and only
+the batch's token ids come to the host; a row that samples has its
+logits row copied to the host and drawn there.  Off the card the logits
+are in host memory already, and every row is drawn by ``_sample``, as
+:func:`decode_offline` draws its one row.  ``ServeReport.device_tokens``
+and ``host_tokens`` count the served tokens each way.
+
 Spans (``launch/spans.py``): each decode step is a ``serve.step`` tiled
 by three children, ``serve.launch`` (the inputs copied into the graph's
 static buffers and the replay, or the eager step), ``serve.logits`` (the
-host blocked until the step's logits are in host memory) and
-``serve.sample`` (sampling every row, positions and tokens, evictions).
+host blocked until what it needs of the step is in host memory: the
+token ids of the device's argmax, the logits rows that sample) and
+``serve.sample`` (each row's token, positions, evictions).
 The batcher's admission round is ``serve.admit``; inside it each group's
 one-pass prefill is ``serve.prefill`` (range arguments ``rids`` and
 ``tokens``, the padded batch's k × S), or its replay loop
@@ -145,6 +154,10 @@ class ServeReport:
     slots: int = 0
     #: span name -> (count, seconds) over the run (``spans.since``)
     spans: dict = field(default_factory=dict)
+    #: served tokens chosen by the device's argmax (greedy rows on the
+    #: card), and drawn by ``_sample`` from logits rows in host memory
+    device_tokens: int = 0
+    host_tokens: int = 0
 
     @property
     def tok_per_s(self) -> float:
@@ -186,6 +199,8 @@ class ServeReport:
                 "wall_s": self.wall_s, "occupancy": self.occupancy,
                 "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
                 "slots": self.slots, "stall_share": self.stall_share,
+                "device_tokens": self.device_tokens,
+                "host_tokens": self.host_tokens,
                 "spans": {k: {"count": n, "s": s}
                           for k, (n, s) in self.spans.items()}}
 
@@ -246,6 +261,54 @@ def _bf16(x, device) -> torch.Tensor:
 def _host_rows(logits: torch.Tensor) -> np.ndarray:
     """(B, 1, vocab) device logits → (B, vocab) f32 numpy (exact for bf16)."""
     return logits[:, -1].float().cpu().numpy()
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lives on the card, where its rows would have to be
+    copied to host memory."""
+    return t.is_cuda
+
+
+class _Tokens:
+    """Each row's next token from one step's last-position logits
+    ``rows`` (B, vocab), row ``i`` at ``temperatures[i]`` (0 for greedy,
+    and for a row that takes no token).
+
+    On the card a greedy row takes the device's argmax, and only the (B,)
+    ids come to the host: ``torch.argmax`` gives the first maximal index,
+    as ``np.argmax`` does, and bf16 orders as its exact f32 does, so the
+    id is ``_sample``'s.  Only the rows that sample come whole, for
+    ``_sample`` to draw on the host: its per-draw ``torch.Generator``
+    stream has no bit-equal device form.  Off the card the rows are in
+    host memory already, and every row goes through ``_sample``.  The
+    constructor waits for the step and copies (``serve.logits``);
+    :meth:`take` chooses (``serve.sample``)."""
+
+    def __init__(self, rows: torch.Tensor, temperatures, seed: int):
+        self.temperatures, self.seed = list(temperatures), seed
+        self.ids, self.host = None, {}
+        if not _on_card(rows):
+            self.host = dict(enumerate(rows.float().cpu().numpy()))
+            return
+        self.ids = rows.argmax(-1).tolist()
+        sampled = [i for i, t in enumerate(self.temperatures) if t > 0]
+        if sampled:
+            self.host = dict(zip(sampled,
+                                 rows[sampled].float().cpu().numpy()))
+
+    def take(self, i: int, rid: int, pos: int,
+             rep: ServeReport | None = None) -> int:
+        """Row ``i``'s token, drawn as request ``rid``'s at input
+        position ``pos``; ``rep``, where given, counts it as served."""
+        row = self.host.get(i)
+        if rep is not None:
+            if row is None:
+                rep.device_tokens += 1
+            else:
+                rep.host_tokens += 1
+        if row is None:
+            return self.ids[i]
+        return _sample(row, self.seed, rid, pos, self.temperatures[i])
 
 
 def _check_batchable(cfg) -> None:
@@ -317,6 +380,8 @@ class ContinuousBatcher:
         self.active = np.zeros(slots, bool)
         self.tokens = np.zeros((slots, 1), np.int64)
         self.slot_req: list[Request | None] = [None] * slots
+        #: the report of the run in progress (its token counts)
+        self._rep: ServeReport | None = None
 
     # -- submission ------------------------------------------------------
     def submit(self, prompt: np.ndarray | None, max_new: int, *,
@@ -358,11 +423,11 @@ class ContinuousBatcher:
         with span("serve.install", rids=rids):
             if filled is not None:
                 self._install(slot_vec, *filled)
-            last_np = last.float().cpu().numpy()
+            first = _Tokens(last, [r.temperature for _, r in pairs],
+                            self.seed)
             t_first = time.perf_counter()
             for i, (slot, req) in enumerate(pairs):
-                tok = _sample(last_np[i], self.seed, req.rid,
-                              req.prompt_len - 1, req.temperature)
+                tok = first.take(i, req.rid, req.prompt_len - 1, self._rep)
                 req.out.append(tok)
                 req.t_first = t_first
                 self.pos[slot] = req.prompt_len
@@ -514,7 +579,7 @@ class ContinuousBatcher:
         """Drain the queue: admit → step → sample/evict until every
         submitted request has finished.  Returns the serving report;
         per-request tokens live on the :class:`Request` objects."""
-        rep = ServeReport(slots=self.slots)
+        rep = self._rep = ServeReport(slots=self.slots)
         before = spans.sums()
         occ_sum = 0.0
         t_start = time.perf_counter()
@@ -537,7 +602,9 @@ class ContinuousBatcher:
                         logits, self.caches = self.lm.decode_step(
                             self.params, self._decode_batch(), self.caches)
                 with span("serve.logits"):
-                    logits_np = _host_rows(logits)
+                    picks = _Tokens(logits[:, -1],
+                                    [0.0 if r is None else r.temperature
+                                     for r in self.slot_req], self.seed)
                 with span("serve.sample"):
                     rep.steps += 1
                     occ_sum += live / self.slots
@@ -545,8 +612,8 @@ class ContinuousBatcher:
                         if not self.active[slot]:
                             continue
                         req = self.slot_req[slot]
-                        tok = _sample(logits_np[slot], self.seed, req.rid,
-                                      int(self.pos[slot]), req.temperature)
+                        tok = picks.take(slot, req.rid, int(self.pos[slot]),
+                                         rep)
                         req.out.append(tok)
                         self.pos[slot] += 1
                         self.tokens[slot, 0] = tok
@@ -670,6 +737,7 @@ def run_static(lm, params, requests: list[Request], *, seed: int,
         B = len(wave)
         l_max = max(r.prompt_len for r in wave)
         g_max = max(r.max_new for r in wave)
+        temps = [r.temperature for r in wave]
         prompts = np.zeros((B, l_max), np.int64)
         for i, r in enumerate(wave):
             if r.prompt is not None:
@@ -707,16 +775,15 @@ def run_static(lm, params, requests: list[Request], *, seed: int,
 
         with span("serve.prompt", width=B):
             # the prompts are staged on the device once; only the last
-            # prompt step's logits go to the host
+            # prompt step's logits give tokens
             prompts_t = torch.as_tensor(prompts, device=dev)
             for t in range(l_max):
                 logits = step(t, prompts_t[:, t:t + 1])
-            logits_np = _host_rows(logits)
+            picks = _Tokens(logits[:, -1], temps, seed)
             toks = np.zeros((B, 1), np.int64)
             done = [False] * B
             for i, r in enumerate(wave):
-                tok = _sample(logits_np[i], seed, r.rid, l_max - 1,
-                              r.temperature)
+                tok = picks.take(i, r.rid, l_max - 1, rep)
                 r.out = [tok]
                 toks[i, 0] = tok
                 done[i] = eos_id is not None and tok == eos_id
@@ -725,13 +792,14 @@ def run_static(lm, params, requests: list[Request], *, seed: int,
                 with span("serve.launch"):
                     logits = step(l_max + n - 1, toks)
                 with span("serve.logits"):
-                    logits_np = _host_rows(logits)
+                    picks = _Tokens(logits[:, -1], temps, seed)
                 with span("serve.sample"):
                     rep.steps += 1
                     for i, r in enumerate(wave):
-                        tok = _sample(logits_np[i], seed, r.rid,
-                                      l_max + n - 1, r.temperature)
-                        if not done[i] and len(r.out) < r.max_new:
+                        served = not done[i] and len(r.out) < r.max_new
+                        tok = picks.take(i, r.rid, l_max + n - 1,
+                                         rep if served else None)
+                        if served:
                             r.out.append(tok)
                             done[i] = eos_id is not None and tok == eos_id
                         toks[i, 0] = tok

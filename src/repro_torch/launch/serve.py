@@ -47,7 +47,9 @@ h2o-danube); other stacks, and ``run_static`` always, prefill as decode
 steps, so attention reads the KV cache and the mLSTM and Mamba run their
 step forms there; the flash-attention, mLSTM chunkwise and
 selective-scan kernels serve ``LM.prefill``.  The continuous summary
-prints the share of groups the one-pass prefill took.
+prints the share of groups the one-pass prefill took; both summaries
+print the share of tokens chosen on the device (greedy rows on the
+card).
 ``--device cpu`` runs the same path on the CPU with the kernels' plain
 versions.
 
@@ -191,10 +193,13 @@ def _admission(rep) -> str:
 
 def _summary(rep) -> str:
     d = rep.to_dict()
+    chosen = rep.device_tokens + rep.host_tokens
     return (f"{rep.generated} tokens / {len(rep.requests)} requests in "
             f"{rep.wall_s:.2f}s ({d['tok_per_s']:.0f} tok/s, occupancy "
             f"{rep.occupancy:.2f}, p50 {d['latency_p50_s'] * 1e3:.0f} ms, "
-            f"p99 {d['latency_p99_s'] * 1e3:.0f} ms)\n"
+            f"p99 {d['latency_p99_s'] * 1e3:.0f} ms; "
+            f"{100 * rep.device_tokens / max(1, chosen):.1f}% of "
+            "tokens chosen on the device)\n"
             f"[serve]   a step: launch {rep.ms_per('serve.launch'):.3f} ms, "
             f"logits {rep.ms_per('serve.logits'):.3f} ms, sample "
             f"{rep.ms_per('serve.sample'):.3f} ms" + _admission(rep))

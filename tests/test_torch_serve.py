@@ -99,6 +99,13 @@ def test_greedy_tokens_match_reference(served):
             assert r.out == want, f"rid {r.rid}: {r.out} != {want}"
 
 
+def test_greedy_tokens_match_reference_on_card_branch(served, monkeypatch):
+    """The same with the card's branch of ``TS._Tokens`` forced: the
+    device's argmax gives the reference's greedy tokens."""
+    monkeypatch.setattr(TS, "_on_card", lambda t: True)
+    test_greedy_tokens_match_reference(served)
+
+
 def test_greedy_tokens_match_jitted_reference_up_to_ties(served):
     """Against the jitted reference, whose bf16 rounding differs in the
     last place, greedy tokens may part only where the reference's own
@@ -448,6 +455,14 @@ def test_jamba_static_greedy_tokens_match_reference(served_jamba):
     assert rep.generated == sum(g for _, g, _ in trace)
     for r, jr in zip(rep.requests, jrep.requests):
         assert r.out == jr.out, f"rid {r.rid}: {r.out} != {jr.out}"
+
+
+def test_jamba_static_greedy_tokens_match_reference_on_card_branch(
+        served_jamba, monkeypatch):
+    """The same with the card's branch of ``TS._Tokens`` forced, over the
+    MoE layers whose expert capacity couples the wave's rows."""
+    monkeypatch.setattr(TS, "_on_card", lambda t: True)
+    test_jamba_static_greedy_tokens_match_reference(served_jamba)
 
 
 def test_decode_offline_runs_moe_configs(served_jamba):
